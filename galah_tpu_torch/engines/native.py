@@ -1,0 +1,443 @@
+"""The native engine on torch: preclusterer + clusterer
+(counterpart of galah_tpu/engines/native.py).
+
+One NativeContext owns the sketch parameters, the sketch store and the
+device-side fragment-ANI engine; the preclusterer and clusterer share it
+so every genome is sketched once per run. `distances()`:
+
+1. sketch every genome on the host (the C++ sketcher when it loads,
+   threaded);
+2. screen all pairs with the packed triangle screen (ops/prefilter.py)
+   at a conservative containment cutoff;
+3. verify the surviving pairs (ops/fragment_ani.py);
+4. return the pairs whose verified ANI and AF pass, as a sparse cache.
+
+The reference engine's other modes (low-memory streaming, contig
+clustering, reference genomes, the persistent sketch directory, the
+mid-sweep checkpoint) raise "not yet supported".
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from galah_tpu import defaults
+from galah_tpu.cluster.cache import SortedPairDistanceCache
+from galah_tpu.engines.base import ClusterDistanceFinder, PreclusterDistanceFinder
+from galah_tpu.sketch.fracminhash import (
+    NativeSketch,
+    NativeSketchParams,
+    sketch_file_native,
+    small_genome_params,
+)
+from galah_tpu.utils import metrics
+from galah_tpu_torch.ops.fragment_ani import FragmentAniConfig, FragmentAniEngine
+from galah_tpu_torch.ops.prefilter import screen_triangle_packed
+from galah_tpu_torch.utils.convert import pack_indicator
+
+logger = logging.getLogger(__name__)
+
+
+def not_supported(what: str) -> ValueError:
+    return ValueError(f"{what} is not yet supported by galah_tpu_torch")
+
+
+def _shrink_bits(
+    params: NativeSketchParams, max_genome_length: int
+) -> NativeSketchParams:
+    """Shrink bitmap widths when the dataset's genomes are small, never
+    growing past the defaults: the prefilter bitmap targets ~6% load
+    (x16), the member bitmap ~0.4% (x256). Same rule as the reference,
+    so both packages sketch at the same widths."""
+    import dataclasses
+
+    def pick(
+        target_hashes: int, default_bits: int, floor_bits: int, mult: int
+    ) -> int:
+        bits = 1 << max(int(target_hashes * mult - 1).bit_length(), floor_bits)
+        return min(bits, default_bits)
+
+    member = pick(
+        max_genome_length // params.fragment_scale + 1,
+        params.member_bits, 17, 256,
+    )
+    pref = pick(
+        max_genome_length // params.genome_scale + 1,
+        params.prefilter_bits, 13, 16,
+    )
+    return dataclasses.replace(params, member_bits=member, prefilter_bits=pref)
+
+
+def calibrated_ani_threshold(
+    threshold_pct: float, semantics: str, k: int
+) -> float:
+    """Map a user-facing ANI threshold to the native estimator's scale:
+    "window" is the identity; "skani-calibrated" shifts the threshold
+    down by the documented typical indel bias."""
+    if semantics == "window":
+        return threshold_pct
+    if semantics != "skani-calibrated":
+        raise ValueError(f"unknown --ani-semantics {semantics!r}")
+    c = (
+        defaults.CALIBRATION_INDEL_EVENTS_PER_SUB
+        * (k + defaults.CALIBRATION_MEAN_INDEL_LEN - 1.0)
+        / k
+    )
+    return threshold_pct - c * (100.0 - threshold_pct)
+
+
+def _screen_min_containment(
+    ani_threshold_pct: float, min_af: float, k: int
+) -> float:
+    """Exact screen cutoff from the requested AF; min_af <= 0 disables
+    screen pruning (every pair is verified)."""
+    if min_af <= 0:
+        return 0.0
+    return defaults.NATIVE_SCREEN_MARGIN * min_af * (ani_threshold_pct / 100.0) ** k
+
+
+def _emit_verified(res, idx_by_key_pair, threshold_pct, min_af, cache):
+    """Insert bidirectional verify results into the sparse cache: the AF
+    and ANI filter, every index pair per key pair, float32 rounding."""
+    for kp, (ani, af_f, af_r) in res.items():
+        for i, j in idx_by_key_pair[kp]:
+            if max(af_f, af_r) >= min_af and ani >= threshold_pct:
+                cache.insert((i, j), float(np.float32(ani)))
+
+
+class NativeContext:
+    """Shared state: sketch params, in-memory sketch store, and the
+    fragment-ANI engine on `device`."""
+
+    def __init__(
+        self,
+        device: torch.device,
+        small_genomes: bool = False,
+        fragment_length: Optional[int] = None,
+        threads: int = 4,
+        params: Optional[NativeSketchParams] = None,
+        max_genome_length: Optional[int] = None,
+    ) -> None:
+        if params is not None:
+            self.params = params
+        elif small_genomes:
+            self.params = small_genome_params(fragment_length=fragment_length)
+        else:
+            self.params = NativeSketchParams(
+                fragment_length=fragment_length
+                if fragment_length is not None
+                else defaults.DEFAULT_FRAGMENT_LENGTH
+            )
+            if max_genome_length:
+                self.params = _shrink_bits(self.params, max_genome_length)
+        self.device = device
+        self._sketched_any = False
+        self.threads = max(1, threads)
+        self._store: Dict[str, NativeSketch] = {}
+        self.frag_engine = FragmentAniEngine(
+            FragmentAniConfig(
+                k=self.params.k,
+                member_bits=self.params.member_bits,
+                min_fragment_hashes=self.params.min_fragment_hashes,
+            ),
+            device,
+        )
+
+    def _widen_for_low_af(
+        self, min_af: float, screen_ani_pct: Optional[float]
+    ) -> None:
+        """Widen the prefilter bitmap so the screen cutoff stays >= 4
+        sigma above collision noise (std ~ 1/sqrt(B)); refuse widths
+        over 2^26 bits. Same rule as the reference."""
+        import dataclasses
+        import math as _math
+
+        if min_af <= 0:
+            return
+        ani = screen_ani_pct or defaults.MIN_SUPPORTED_PRECLUSTER_ANI
+        cutoff = _screen_min_containment(ani, min_af, self.params.k)
+        need = (4.0 / cutoff) ** 2
+        cap = 1 << 26
+        if need > cap:
+            raise ValueError(
+                f"Error: --min-aligned-fraction {min_af:g} at ANI "
+                f"{ani:g}% needs a {need / 8 / 1e6:.0f}MB prefilter "
+                "sketch per genome to screen reliably. Raise "
+                "--min-aligned-fraction, or lower it to 0 to disable "
+                "aligned-fraction screening entirely (every pair is "
+                "then verified)."
+            )
+        bits = 1 << _math.ceil(_math.log2(need))
+        if bits > self.params.prefilter_bits:
+            if self._sketched_any:
+                raise RuntimeError(
+                    "internal: prefilter bitmap widening requested after "
+                    "sketches were already computed at the old width"
+                )
+            logger.info(
+                "Widening prefilter bitmap to %d bits for "
+                "--min-aligned-fraction %.3g", bits, min_af,
+            )
+            self.params = dataclasses.replace(
+                self.params, prefilter_bits=bits
+            )
+
+    def key_for(self, sketch: NativeSketch) -> str:
+        return sketch.name
+
+    def sketch(self, path: str) -> NativeSketch:
+        sk = self._store.get(path)
+        if sk is None:
+            self._sketched_any = True
+            sk = sketch_file_native(path, self.params)
+            self._store[path] = sk
+        return sk
+
+    def sketch_many(self, paths: Sequence[str]) -> List[NativeSketch]:
+        missing = [p for p in dict.fromkeys(paths) if p not in self._store]
+        if missing:
+            logger.info("Sketching %d genomes ..", len(missing))
+            self._sketched_any = True
+            bases = 0
+            with metrics.current().phase("sketch"):
+                if self.threads > 1 and len(missing) > 1:
+                    with ThreadPoolExecutor(max_workers=self.threads) as ex:
+                        sketches = list(ex.map(
+                            lambda p: sketch_file_native(p, self.params),
+                            missing,
+                        ))
+                else:
+                    sketches = [
+                        sketch_file_native(p, self.params) for p in missing
+                    ]
+                for p, sk in zip(missing, sketches):
+                    self._store[p] = sk
+                    bases += sk.total_len
+            metrics.current().count("genomes_sketched", len(missing))
+            metrics.current().count("sketch_bases", bases)
+            logger.info("Finished sketching genomes")
+        return [self._store[p] for p in paths]
+
+
+class NativePreclusterer(PreclusterDistanceFinder):
+    supports_contigs = False
+
+    def __init__(
+        self,
+        threshold: float,
+        min_aligned_threshold: float,
+        ctx: NativeContext,
+        ani_semantics: str = defaults.DEFAULT_ANI_SEMANTICS,
+    ) -> None:
+        """threshold: percent (e.g. 95.0); min_aligned_threshold:
+        fraction (e.g. 0.15)."""
+        if threshold < defaults.MIN_SUPPORTED_PRECLUSTER_ANI:
+            raise ValueError(
+                "Error: the native engine produces inaccurate results with ANI "
+                f"less than 85%. Provided: {threshold:g}"
+            )
+        self.threshold = calibrated_ani_threshold(
+            threshold, ani_semantics, ctx.params.k
+        )
+        self.min_aligned_threshold = min_aligned_threshold
+        self.ctx = ctx
+        # Sizes the prefilter bitmap for the requested AF before any
+        # sketching (the width shapes the sketches).
+        ctx._widen_for_low_af(min_aligned_threshold, threshold)
+
+    def distances(
+        self, genome_fasta_paths: Sequence[str]
+    ) -> SortedPairDistanceCache:
+        return self._screen_and_verify(self.ctx.sketch_many(genome_fasta_paths))
+
+    def distances_contigs(self, genome_fasta_paths, contig_names):
+        raise not_supported("--cluster-contigs")
+
+    def distances_with_references(self, genome_fasta_paths, reference_genomes):
+        raise not_supported("--reference-genomes")
+
+    def method_name(self) -> str:
+        return "native"
+
+    def _screen_and_verify(
+        self, sketches: Sequence[NativeSketch]
+    ) -> SortedPairDistanceCache:
+        ctx = self.ctx
+        k = ctx.params.k
+        bits = ctx.params.prefilter_bits
+        n = len(sketches)
+        logger.info("Screening %d sketches all-vs-all ..", n)
+        min_cont = _screen_min_containment(
+            self.threshold, self.min_aligned_threshold, k
+        )
+        t0 = time.perf_counter()
+        res = screen_triangle_packed(
+            [pack_indicator(s.prefilter_buckets, bits) for s in sketches],
+            np.asarray([s.n_prefilter for s in sketches]),
+            k,
+            min_cont,
+            bits,
+            device=ctx.device,
+        )
+        dt = time.perf_counter() - t0
+        m = metrics.current()
+        m.phases["screen"] = m.phases.get("screen", 0.0) + dt
+        m.rate("screen_pairs_per_s", n * (n - 1) / 2, dt)
+        logger.info("Screen produced %d candidate pairs", len(res.pairs))
+        if len(res.pairs) == 0:
+            return SortedPairDistanceCache()
+        cache = self._verify_pairs(sketches, res.pairs)
+        self._report_indel_load(cache, lambda i: sketches[i])
+        return cache
+
+    def _report_indel_load(self, cache, sketch_for) -> None:
+        """Advisory: estimate the corpus's apparent indel load from a
+        sample of verified pairs (galah_tpu.ops.indel_estimate, host
+        numpy) and report it in the metrics and log, as the reference
+        does. GALAH_TPU_INDEL_ESTIMATE=0 disables."""
+        if os.environ.get("GALAH_TPU_INDEL_ESTIMATE", "1") == "0":
+            return
+        if len(cache) == 0:
+            return
+        try:
+            from collections import Counter
+
+            from galah_tpu.ops.indel_estimate import estimate_indel_load
+
+            keys = [p for p, _ in cache.items()]
+            span = 128
+            blocks = Counter(
+                min(i, j) // span
+                for i, j in keys
+                if max(i, j) - min(i, j) < span
+            )
+            sample = []
+            if blocks:
+                best = blocks.most_common(1)[0][0]
+                sample = [
+                    (i, j) for i, j in keys
+                    if min(i, j) // span == best
+                    and max(i, j) - min(i, j) < span
+                ][:24]
+            if len(sample) < 8:
+                sample = keys[:24]
+            res = estimate_indel_load(
+                sample, sketch_for, self.ctx.params, max_pairs=24
+            )
+        except Exception as e:  # advisory: never fail the run
+            logger.debug("indel-load estimate failed: %r", e)
+            return
+        if res is None:
+            return
+        m = metrics.current()
+        m.count(
+            "apparent_indel_events_per_sub",
+            res["apparent_indel_events_per_sub"],
+        )
+        m.count("indel_estimate_pairs_used", res["pairs_used"])
+        logger.info(
+            "Apparent corpus indel load: %.3f indel events per "
+            "substitution (skani-calibrated assumes %.3f; mark ratio "
+            "%.1f over %d pair-directions / %d fragments).",
+            res["apparent_indel_events_per_sub"], res["calibration_default"],
+            res["mark_ratio"], int(res["pairs_used"]),
+            int(res["fragments_used"]),
+        )
+
+    def _verify_pairs(
+        self, sketches: Sequence[NativeSketch], pairs: np.ndarray
+    ) -> SortedPairDistanceCache:
+        """One bidirectional batch over every candidate pair."""
+        ctx = self.ctx
+        threshold_pct = self.threshold
+        min_af = self.min_aligned_threshold
+        cache = SortedPairDistanceCache()
+        t0 = time.perf_counter()
+        sketches_by_key: Dict[str, NativeSketch] = {}
+        key_pairs: List[Tuple[str, str]] = []
+        idx_by_key_pair: Dict[Tuple[str, str], List[Tuple[int, int]]] = {}
+        for i, j in pairs:
+            i, j = int(i), int(j)
+            ki = ctx.key_for(sketches[i])
+            kj = ctx.key_for(sketches[j])
+            sketches_by_key.setdefault(ki, sketches[i])
+            sketches_by_key.setdefault(kj, sketches[j])
+            key_pairs.append((ki, kj))
+            idx_by_key_pair.setdefault((ki, kj), []).append((i, j))
+        if key_pairs:
+            res = ctx.frag_engine.bidirectional(key_pairs, sketches_by_key)
+            _emit_verified(res, idx_by_key_pair, threshold_pct, min_af, cache)
+        dt = time.perf_counter() - t0
+        m = metrics.current()
+        m.phases["verify"] = m.phases.get("verify", 0.0) + dt
+        if len(pairs):
+            m.rate("verify_pairs_per_s", len(pairs), dt)
+        logger.info(
+            "Verified %d candidate pairs; %d passed ANI>=%.4g with AF>=%.3g",
+            len(pairs), len(cache), threshold_pct, min_af,
+        )
+        return cache
+
+
+class NativeClusterer(ClusterDistanceFinder):
+    def __init__(
+        self,
+        threshold: float,
+        min_aligned_threshold: float,
+        ctx: NativeContext,
+        af_fail_result: Optional[float] = 0.0,
+        ani_semantics: str = defaults.DEFAULT_ANI_SEMANTICS,
+    ) -> None:
+        """af_fail_result: value returned when the AF filter fails (0.0,
+        skani-compatible; None, fastANI-compatible)."""
+        self.threshold = calibrated_ani_threshold(
+            threshold, ani_semantics, ctx.params.k
+        )
+        self.min_aligned_threshold = min_aligned_threshold
+        self.ctx = ctx
+        self.af_fail_result = af_fail_result
+
+    def initialise(self) -> None:
+        if not self.threshold > 1.0:
+            raise ValueError("ANI threshold must be a percentage")
+
+    def method_name(self) -> str:
+        return "native"
+
+    def get_ani_threshold(self) -> float:
+        return self.threshold
+
+    def calculate_ani(self, fasta1: str, fasta2: str) -> Optional[float]:
+        return self.calculate_ani_batch([(fasta1, fasta2)])[0]
+
+    def calculate_ani_batch(
+        self, pairs: Sequence[Tuple[str, str]]
+    ) -> List[Optional[float]]:
+        """Pairs are (ref, query) paths."""
+        if not pairs:
+            return []
+        ctx = self.ctx
+        sketches_by_key = {}
+        key_pairs = []
+        for ref, query in pairs:
+            rs, qs = ctx.sketch(ref), ctx.sketch(query)
+            kr, kq = ctx.key_for(rs), ctx.key_for(qs)
+            sketches_by_key[kr] = rs
+            sketches_by_key[kq] = qs
+            key_pairs.append((kq, kr))
+        res = ctx.frag_engine.bidirectional(key_pairs, sketches_by_key)
+        out: List[Optional[float]] = []
+        for kp in key_pairs:
+            ani, af_f, af_r = res[kp]
+            if max(af_f, af_r) >= self.min_aligned_threshold:
+                out.append(float(np.float32(ani)))
+            else:
+                out.append(self.af_fail_result)
+        return out
