@@ -3,25 +3,42 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (a failed check raises and the script exits
-non-zero):
+Phases, one line or more each (a failed check raises and the script
+exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: compile galah_tpu_torch/csrc/*.cu with nvcc for sm_90a;
-3. kernel: the packed-popcount kernel against its plain torch version on
-   the card, bit-exact, at the screen's tile shapes, with both times;
+3. kernel: each hand-written kernel against its plain torch version on
+   the card, bit-exact, at the shapes its screen gives it, with CUDA-event
+   times: the packed-popcount kernel (K1) at the packed screen's tiles,
+   the popcount-screen kernel (K2) at the popcount screen's tiles beside
+   its plain version and K1 at the same shapes;
 4. main path: `galah_tpu_torch cluster` over 1024 synthetic 1 Mb genomes
    (128 families of 8, 98% ANI within a family) must find exactly the
-   128 families, through the kernel, with screen and verify on the card;
-5. parity: a 64-genome 200 kb corpus through the port on the CPU and on
-   the card must give the same candidate pairs, ANI within 1e-3
-   percentage points, equal AF and the same clusters.tsv.
+   128 families, through K1, with screen and verify on the card;
+5. popcount path: the same run with GALAH_TPU_SCREEN=popcount must give
+   a byte-identical clusters.tsv through K2, with K1 never launched;
+6. reference mode: the first genome of each family as
+   --reference-genomes-list, the other 896 as --genome-fasta-list: 128
+   clusters, one per family, each holding its reference; the rectangle
+   runs through K1 on the card;
+7. low memory: --low-memory over the main corpus gives a byte-identical
+   clusters.tsv, through K1's streaming sweep;
+8. streaming at scale: 10,240 synthetic packed rows of 2^17 bits with
+   200 planted near-duplicate pairs; the resident and streaming packed
+   sweeps (55 tiles of 1024^2) give identical pairs and ANI, and the
+   popcount screen (15 tiles of 2048^2) the same pair set;
+9. parity: a 64-genome 200 kb corpus through the port on the CPU and on
+   the card, for the packed, popcount, reference and low-memory paths,
+   must give the same candidate pairs, ANI within 1e-3 percentage
+   points, equal AF and the same clusters.tsv.
 
-The last lines are the kernels' JSON summary, the nvidia-smi line and
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-and prints no result. The synthetic corpora are written under build/ and
-removed at the end.
+Each path's kernel launch counts are set to 0 just before its run and
+read just after. The last lines are the kernels' JSON summary, the
+nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device
+the script exits 1 and prints no result. The synthetic corpora are
+written under build/ and removed at the end.
 """
 
 from __future__ import annotations
@@ -44,6 +61,22 @@ PARITY_GENOMES = (8, 8)
 PARITY_LENGTH = 200_000
 PARITY_SEED = 5
 ANI_TOL = 1e-3                 # percentage points, GPU vs CPU verify ANI
+SCALE_ROWS = 10_240
+SCALE_BITS = 1 << 17
+SCALE_SET_BITS = 5_000         # expected set bits per row
+SCALE_PLANTED = 200
+# (m, n, w) of each kernel's checks: K1 at the packed screen's 1024-row
+# tiles (2^18 and 2^17 bits), at the reference-mode rectangle's one tile
+# over the main corpus (the 896 non-first members against the 128 first
+# members, 2^17 bits) and at a ragged shape; K2 at the popcount screen's
+# tile over the main corpus, at its full 2048-row tiles and at the same
+# ragged shape.
+REFERENCE_TILE = (MAIN_GENOMES[0] * (MAIN_GENOMES[1] - 1), MAIN_GENOMES[0],
+                  4096)
+K1_SHAPES = ((1024, 1024, 8192), (1024, 1024, 4096), REFERENCE_TILE,
+             (1000, 777, 1000))
+K2_SHAPES = ((1024, 1024, 4096), (2048, 2048, 4096), (2048, 2048, 8192),
+             (1000, 777, 1000))
 
 
 def log(phase: str, msg: str) -> None:
@@ -103,6 +136,20 @@ def _random_words(m: int, w: int, density: float, gen, device):
     return u32_to_i32(acc)
 
 
+def _kernel_inputs(m: int, n: int, w: int, gen, dev):
+    """Sparse random rows (the screens' ~6% bitmap load) with dense,
+    empty and all-ones rows mixed in."""
+    a = _random_words(m, w, 0.06, gen, dev)
+    b = _random_words(n, w, 0.06, gen, dev)
+    a[:4] = _random_words(4, w, 0.9, gen, dev)   # dense rows
+    b[10:14] = _random_words(4, w, 0.9, gen, dev)
+    a[4:8] = 0                                   # empty rows
+    b[20:24] = 0
+    a[8] = -1                                    # one all-ones row
+    b[30] = -1
+    return a, b
+
+
 def _time_ms(fn, reps: int) -> float:
     import torch
 
@@ -118,147 +165,233 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _max_err(got, want) -> int:
+    import torch
+
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
 def phase_kernel() -> dict:
-    """Kernel against plain version, bit-exact; returns the timings at
-    the main path's tile shape (W = 4096) and the largest error."""
+    """Each kernel against its plain version, bit-exact; returns per
+    kernel the largest error and the times at its path's tile shape."""
     import torch
 
     from galah_tpu_torch.ops.packed_matmul import (
-        packed_intersect_counts,
-        packed_intersect_counts_reference,
+        packed_intersect_counts as k1,
+        packed_intersect_counts_reference as k1_plain,
+    )
+    from galah_tpu_torch.ops.popcount_screen import (
+        popcount_tile_counts as k2,
+        popcount_tile_counts_reference as k2_plain,
     )
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    cases = []
-    for w in (8192, 4096):
-        a = _random_words(1024, w, 0.06, gen, dev)
-        b = _random_words(1024, w, 0.06, gen, dev)
-        a[:4] = _random_words(4, w, 0.9, gen, dev)   # dense rows
-        b[10:14] = _random_words(4, w, 0.9, gen, dev)
-        a[4:8] = 0                                   # empty rows
-        b[20:24] = 0
-        a[8] = -1                                    # one all-ones row
-        b[30] = -1
-        cases.append((f"1024x1024xW{w}", a, b))
-    cases.append((
-        "1000x777xW1000",
-        _random_words(1000, 1000, 0.06, gen, dev),
-        _random_words(777, 1000, 0.06, gen, dev),
-    ))
-    max_err = 0
+    out = {}
+    err = 0
     times = {}
-    for name, a, b in cases:
-        got = packed_intersect_counts(a, b)
-        want = packed_intersect_counts_reference(a, b)
+    for m, n, w in K1_SHAPES:
+        name = f"{m}x{n}xW{w}"
+        a, b = _kernel_inputs(m, n, w, gen, dev)
+        got, want = k1(a, b), k1_plain(a, b)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        max_err = max(max_err, err)
-        check(torch.equal(got, want), f"kernel != plain at {name} (max err {err})")
-        ms = _time_ms(lambda: packed_intersect_counts(a, b), 20)
-        plain_ms = _time_ms(lambda: packed_intersect_counts_reference(a, b), 5)
-        times[name] = (ms, plain_ms)
-        log("kernel", f"{name}: bit-exact; kernel {ms:.4f} ms/tile, "
-                      f"plain {plain_ms:.4f} ms/tile")
+        err = max(err, _max_err(got, want))
+        check(torch.equal(got, want), f"K1 != plain at {name}")
+        times[name] = (_time_ms(lambda: k1(a, b), 20),
+                       _time_ms(lambda: k1_plain(a, b), 5))
+        log("kernel", f"K1 {name}: bit-exact; kernel {times[name][0]:.4f} "
+                      f"ms/tile, plain {times[name][1]:.4f} ms/tile")
     ms, plain_ms = times["1024x1024xW4096"]
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_err}
+    out["packed_intersect_counts"] = {
+        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+
+    err = 0
+    times = {}
+    for m, n, w in K2_SHAPES:
+        name = f"{m}x{n}xW{w}"
+        a, b = _kernel_inputs(m, n, w, gen, dev)
+        got, want, other = k2(a, b), k2_plain(a, b), k1(a, b)
+        torch.cuda.synchronize()
+        err = max(err, _max_err(got, want))
+        check(torch.equal(got, want), f"K2 != plain at {name}")
+        check(torch.equal(other, want), f"K1 != K2's plain at {name}")
+        times[name] = (_time_ms(lambda: k2(a, b), 20),
+                       _time_ms(lambda: k2_plain(a, b), 2),
+                       _time_ms(lambda: k1(a, b), 20))
+        log("kernel", f"K2 {name}: bit-exact; kernel {times[name][0]:.4f} "
+                      f"ms/tile, plain {times[name][1]:.4f} ms/tile, "
+                      f"K1 {times[name][2]:.4f} ms/tile")
+    ms, plain_ms, _ = times["1024x1024xW4096"]
+    out["popcount_tile_counts"] = {
+        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+    return out
 
 
 @contextlib.contextmanager
 def _recording():
-    """Record the devices the screen and verify kernels ran on, the
-    screen's candidate pairs and the verify results of one run."""
+    """Record the devices the screen and verify ran on, the screen's
+    candidate pairs and the verify results of one run."""
     import galah_tpu_torch.engines.native as native
     import galah_tpu_torch.ops.fragment_ani as fa
     import galah_tpu_torch.ops.pair_table as pt
+    import galah_tpu_torch.ops.popcount_screen as pc
     import galah_tpu_torch.ops.prefilter as pf
 
-    rec = {"screen_dev": set(), "verify_dev": set(), "pairs": None,
-           "verified": {}}
-    orig = (pf._screen_tile, pt._pair_table_kernel, fa._forward_kernel,
-            native.screen_triangle_packed, fa.FragmentAniEngine.bidirectional)
+    rec = {"screen_dev": set(), "verify_dev": set(), "tile_shapes": set(),
+           "pairs": None, "verified": {}}
+    screens = ("screen_triangle_packed", "screen_triangle_popcount",
+               "screen_rectangle_packed")
+    orig = {
+        (pf, "_containment"): pf._containment,
+        (pc, "_containment"): pc._containment,
+        (pt, "_pair_table_kernel"): pt._pair_table_kernel,
+        (fa, "_forward_kernel"): fa._forward_kernel,
+        (fa.FragmentAniEngine, "bidirectional"):
+            fa.FragmentAniEngine.bidirectional,
+        **{(native, s): getattr(native, s) for s in screens},
+    }
 
-    def screen_tile(si, *a, **k):
-        rec["screen_dev"].add(si.device.type)
-        return orig[0](si, *a, **k)
+    def containment(fn):
+        def run(counts, *a, **k):
+            rec["screen_dev"].add(counts.device.type)
+            rec["tile_shapes"].add(tuple(counts.shape))
+            return fn(counts, *a, **k)
+        return run
 
     def pair_table_kernel(ustream, *a, **k):
         rec["verify_dev"].add(ustream.device.type)
-        return orig[1](ustream, *a, **k)
+        return orig[(pt, "_pair_table_kernel")](ustream, *a, **k)
 
     def forward_kernel(bitmaps, *a, **k):
         rec["verify_dev"].add(bitmaps.device.type)
-        return orig[2](bitmaps, *a, **k)
+        return orig[(fa, "_forward_kernel")](bitmaps, *a, **k)
 
-    def screen(*a, **k):
-        res = orig[3](*a, **k)
-        rec["pairs"] = res
-        return res
+    def screen(fn):
+        def run(*a, **k):
+            rec["pairs"] = fn(*a, **k)
+            return rec["pairs"]
+        return run
 
     def bidirectional(self, pairs, sketches_by_key):
-        out = orig[4](self, pairs, sketches_by_key)
+        out = orig[(fa.FragmentAniEngine, "bidirectional")](
+            self, pairs, sketches_by_key)
         rec["verified"].update(out)
         return out
 
-    pf._screen_tile = screen_tile
+    pf._containment = containment(orig[(pf, "_containment")])
+    pc._containment = containment(orig[(pc, "_containment")])
     pt._pair_table_kernel = pair_table_kernel
     fa._forward_kernel = forward_kernel
-    native.screen_triangle_packed = screen
     fa.FragmentAniEngine.bidirectional = bidirectional
+    for s in screens:
+        setattr(native, s, screen(orig[(native, s)]))
     try:
         yield rec
     finally:
-        (pf._screen_tile, pt._pair_table_kernel, fa._forward_kernel,
-         native.screen_triangle_packed,
-         fa.FragmentAniEngine.bidirectional) = orig
+        for (owner, attr), fn in orig.items():
+            setattr(owner, attr, fn)
 
 
-def _run_cli(corpus: str, out_dir: str, tag: str, platform: str):
+def _launch_counters():
+    from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
+    from galah_tpu_torch.ops.popcount_screen import popcount_tile_counts
+
+    return {"K1": packed_intersect_counts, "K2": popcount_tile_counts}
+
+
+def _run_cli(inputs, out_dir: str, tag: str, platform: str,
+             screen: str | None = None, flags=()):
+    """One `cluster` run; returns (wall, metrics, clusters.tsv bytes,
+    recording, {kernel: launches in this run})."""
     from galah_tpu_torch.cli.main import main
 
     tsv = os.path.join(out_dir, f"{tag}.tsv")
     mjson = os.path.join(out_dir, f"{tag}.json")
-    argv = ["cluster", "-d", corpus, "-x", "fna", "--ani", "95",
+    argv = ["cluster", *inputs, "--ani", "95",
             "-t", str(min(8, os.cpu_count() or 1)),
-            "--output-cluster-definition", tsv, "--metrics-json", mjson, "-q"]
+            "--output-cluster-definition", tsv, "--metrics-json", mjson,
+            "-q", *flags]
     os.environ["GALAH_TPU_PLATFORM"] = platform
-    with _recording() as rec:
-        t0 = time.perf_counter()
-        rc = main(argv)
-        wall = time.perf_counter() - t0
+    if screen:
+        os.environ["GALAH_TPU_SCREEN"] = screen
+    counters = _launch_counters()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        with _recording() as rec:
+            t0 = time.perf_counter()
+            rc = main(argv)
+            wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        os.environ.pop("GALAH_TPU_SCREEN", None)
     check(rc == 0, f"{tag}: cluster exited {rc}")
     with open(mjson) as f:
         run_metrics = json.load(f)
     with open(tsv, "rb") as f:
         clusters = f.read()
-    return wall, run_metrics, clusters, rec
+    return wall, run_metrics, clusters, rec, launches
+
+
+def _members(clusters_tsv: bytes) -> dict:
+    members = {}
+    for line in clusters_tsv.decode().splitlines():
+        rep, member = line.split("\t")
+        members.setdefault(rep, []).append(member)
+    return members
 
 
 def _families_exact(clusters_tsv: bytes, paths, fam_ids) -> int:
     """Number of clusters, after checking each is exactly one family."""
     fam_of = {p: f for p, f in zip(paths, fam_ids)}
-    members = {}
-    for line in clusters_tsv.decode().splitlines():
-        rep, member = line.split("\t")
-        members.setdefault(rep, []).append(member)
     seen = set()
-    for rep, ms in members.items():
+    for rep, ms in _members(clusters_tsv).items():
         fams = {fam_of[m] for m in ms}
         check(len(fams) == 1, f"cluster of {rep} mixes families {sorted(fams)}")
         fam = fams.pop()
         check(fam not in seen, f"family {fam} split over clusters")
         check(len(ms) == fam_ids.count(fam), f"family {fam} incomplete")
         seen.add(fam)
-    return len(members)
+    return len(seen)
 
 
-def phase_main_path(work: str) -> int:
+def _reference_inputs(work: str, tag: str, paths, fam_ids):
+    """CLI inputs of reference mode: the first genome of each family in
+    a --reference-genomes-list, the rest in a --genome-fasta-list."""
+    refs = [paths[fam_ids.index(f)] for f in sorted(set(fam_ids))]
+    ref_list = os.path.join(work, f"{tag}_refs.txt")
+    genome_list = os.path.join(work, f"{tag}_genomes.txt")
+    with open(ref_list, "w") as f:
+        f.writelines(p + "\n" for p in refs)
+    with open(genome_list, "w") as f:
+        f.writelines(p + "\n" for p in paths if p not in set(refs))
+    return refs, ["--genome-fasta-list", genome_list,
+                  "--reference-genomes-list", ref_list]
+
+
+def _log_run(phase: str, wall: float, m: dict, launches: dict, rec) -> None:
     import torch
 
+    log(phase, f"wall {wall:.2f} s; phases {json.dumps(m['phases_s'])}")
+    counters = m["counters"]
+    log(phase, "counters " + json.dumps({
+        k: counters.get(k) for k in (
+            "genomes_sketched", "sketch_bases", "screen_tiles",
+            "screen_pairs_computed", "verify_directed_pairtable",
+            "verify_directed_grouped", "clusters")
+    }))
+    log(phase, f"kernel launches {json.dumps(launches)}; screen on "
+               f"{sorted(rec['screen_dev'])}; verify on "
+               f"{sorted(rec['verify_dev'])}; peak device memory "
+               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    check(rec["screen_dev"] == {"cuda"}, f"screen ran on {rec['screen_dev']}")
+    check(rec["verify_dev"] == {"cuda"}, f"verify ran on {rec['verify_dev']}")
+
+
+def make_main_corpus(work: str):
     from galah_tpu import native_ext
     from galah_tpu.utils.synth import make_families
-    from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
 
     nfam, nmem = MAIN_GENOMES
     corpus = os.path.join(work, "main")
@@ -269,30 +402,127 @@ def phase_main_path(work: str) -> int:
     log("main", f"corpus {len(paths)} x {MAIN_LENGTH} bp made in "
                 f"{time.perf_counter() - t0:.1f} s; C++ sketcher loaded: "
                 f"{native_ext.available()}")
+    return corpus, paths, fam_ids
+
+
+def phase_main_path(work: str, corpus: str, paths, fam_ids):
+    """The packed path; returns (K1 launches, clusters.tsv bytes)."""
+    import torch
+
     torch.cuda.reset_peak_memory_stats()
-    packed_intersect_counts.launches = 0
-    wall, m, clusters, rec = _run_cli(corpus, work, "main", "gpu")
-    launches = packed_intersect_counts.launches
-    torch.cuda.synchronize()
+    wall, m, clusters, rec, launches = _run_cli(
+        ["-d", corpus, "-x", "fna"], work, "main", "gpu")
+    _log_run("main", wall, m, launches, rec)
     n_clusters = _families_exact(clusters, paths, fam_ids)
-    counters = m["counters"]
-    log("main", f"wall {wall:.2f} s; phases {json.dumps(m['phases_s'])}")
-    log("main", "counters " + json.dumps({
-        k: counters.get(k) for k in (
-            "genomes_sketched", "sketch_bases", "screen_tiles",
-            "screen_pairs_computed", "verify_directed_pairtable",
-            "verify_directed_grouped", "clusters")
-    }))
-    log("main", f"kernel launches {launches}; screen on {sorted(rec['screen_dev'])}; "
-                f"verify on {sorted(rec['verify_dev'])}; peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    check(n_clusters == nfam, f"{n_clusters} clusters, want {nfam}")
-    check(launches >= counters["screen_tiles"] > 0,
-          f"{launches} kernel launches for {counters['screen_tiles']} tiles")
-    check(rec["screen_dev"] == {"cuda"}, f"screen ran on {rec['screen_dev']}")
-    check(rec["verify_dev"] == {"cuda"}, f"verify ran on {rec['verify_dev']}")
+    tiles = m["counters"]["screen_tiles"]
+    check(n_clusters == MAIN_GENOMES[0],
+          f"{n_clusters} clusters, want {MAIN_GENOMES[0]}")
+    check(launches["K1"] >= tiles > 0,
+          f"{launches['K1']} K1 launches for {tiles} tiles")
     log("main", f"OK: {n_clusters} clusters, one per family")
-    return launches
+    return launches["K1"], clusters
+
+
+def phase_popcount_path(work: str, corpus: str, main_tsv: bytes) -> int:
+    """GALAH_TPU_SCREEN=popcount; returns K2's launches."""
+    wall, m, clusters, rec, launches = _run_cli(
+        ["-d", corpus, "-x", "fna"], work, "popcount", "gpu",
+        screen="popcount")
+    _log_run("popcount", wall, m, launches, rec)
+    check(launches["K2"] >= 1 and launches["K1"] == 0,
+          f"popcount path launches {launches}")
+    check(clusters == main_tsv, "popcount clusters.tsv differs from packed")
+    log("popcount", "OK: clusters.tsv identical to the packed run")
+    return launches["K2"]
+
+
+def phase_reference(work: str, paths, fam_ids) -> None:
+    refs, inputs = _reference_inputs(work, "reference", paths, fam_ids)
+    wall, m, clusters, rec, launches = _run_cli(
+        inputs, work, "reference", "gpu")
+    _log_run("reference", wall, m, launches, rec)
+    check(launches["K1"] >= 1, f"reference path launches {launches}")
+    check(rec["tile_shapes"] == {REFERENCE_TILE[:2]},
+          f"reference tiles {rec['tile_shapes']}, the kernel phase checked "
+          f"{REFERENCE_TILE[:2]}")
+    n_clusters = _families_exact(clusters, paths, fam_ids)
+    check(n_clusters == MAIN_GENOMES[0],
+          f"{n_clusters} clusters, want {MAIN_GENOMES[0]}")
+    for rep, ms in _members(clusters).items():
+        check(len(set(ms) & set(refs)) == 1,
+              f"cluster of {rep} does not hold exactly one reference")
+    log("reference", f"OK: {n_clusters} clusters, one per family, each "
+                     f"holding its reference ({len(refs)} references)")
+
+
+def phase_low_memory(work: str, corpus: str, main_tsv: bytes) -> None:
+    wall, m, clusters, rec, launches = _run_cli(
+        ["-d", corpus, "-x", "fna"], work, "low_memory", "gpu",
+        flags=["--low-memory"])
+    _log_run("low-memory", wall, m, launches, rec)
+    check(launches["K1"] >= 1, f"low-memory path launches {launches}")
+    check(clusters == main_tsv, "--low-memory clusters.tsv differs")
+    log("low-memory", "OK: clusters.tsv identical to the default run")
+
+
+def phase_scale() -> None:
+    """Resident, streaming and popcount sweeps over 10,240 packed rows."""
+    import numpy as np
+    import torch
+
+    from galah_tpu_torch.engines.native import _screen_min_containment
+    from galah_tpu_torch.ops.popcount_screen import (
+        DEFAULT_BLOCK as POPCOUNT_BLOCK,
+        _popc32,
+        screen_triangle_popcount,
+    )
+    from galah_tpu_torch.ops.prefilter import screen_triangle_packed
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    w = SCALE_BITS // 32
+    x = _random_words(SCALE_ROWS, w, SCALE_SET_BITS / SCALE_BITS, gen, dev)
+    order = torch.randperm(SCALE_ROWS, generator=gen, device=dev)
+    ii = order[:SCALE_PLANTED].sort().values
+    jj = order[SCALE_PLANTED:2 * SCALE_PLANTED]
+    x[jj] = x[ii] & _random_words(SCALE_PLANTED, w, 0.9, gen, dev)
+    planted = {tuple(sorted(p)) for p in zip(ii.tolist(), jj.tolist())}
+    sizes = _popc32(x).sum(dim=1).cpu().numpy()
+    rows = list(x.cpu().numpy().view(np.uint32))
+    del x
+    cut = _screen_min_containment(95.0, 0.15, 15)
+    counters = _launch_counters()
+    runs = {}
+    for name, screen, kw in (
+        ("resident", screen_triangle_packed, {}),
+        ("streaming", screen_triangle_packed, {"cache_blocks": False}),
+        ("popcount", screen_triangle_popcount, {}),
+    ):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = screen(rows, sizes, 15, cut, SCALE_BITS, device=dev, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[name] = res
+        log("scale", f"{name}: {dt:.3f} s, {len(res.pairs)} pairs, launches "
+                     f"{json.dumps({k: f.launches for k, f in counters.items()})}")
+    nb = -(-SCALE_ROWS // POPCOUNT_BLOCK)
+    check(counters["K2"].launches == nb * (nb + 1) // 2,
+          "one K2 launch per popcount tile")
+    res, st = runs["resident"], runs["streaming"]
+    check(np.array_equal(res.pairs, st.pairs), "streaming pairs differ")
+    check(np.array_equal(res.ani_est.view(np.int32), st.ani_est.view(np.int32)),
+          "streaming ANI differs")
+    found = set(map(tuple, res.pairs.tolist()))
+    check(found == planted, f"{len(found)} pairs, {len(planted)} planted")
+    check(set(map(tuple, runs["popcount"].pairs.tolist())) == found,
+          "popcount pair set differs")
+    log("scale", f"OK: {SCALE_ROWS} rows, the {len(planted)} planted pairs "
+                 "exactly, resident == streaming (pairs and ANI), popcount "
+                 "pair set equal")
 
 
 def phase_parity(work: str) -> None:
@@ -305,30 +535,44 @@ def phase_parity(work: str) -> None:
     paths, fam_ids = make_families(corpus, nfam, nmem,
                                    genome_length=PARITY_LENGTH,
                                    within_ani=0.98, seed=PARITY_SEED)
-    wall_c, _, tsv_c, rec_c = _run_cli(corpus, work, "parity_cpu", "cpu")
-    wall_g, _, tsv_g, rec_g = _run_cli(corpus, work, "parity_gpu", "gpu")
-    check(rec_c["screen_dev"] == {"cpu"} and rec_g["screen_dev"] == {"cuda"},
-          "parity runs on the wrong devices")
+    _, ref_inputs = _reference_inputs(work, "parity", paths, fam_ids)
+    dir_inputs = ["-d", corpus, "-x", "fna"]
 
     def sorted_pairs(res):
         o = np.lexsort((res.pairs[:, 1], res.pairs[:, 0]))
         return res.pairs[o], res.ani_est[o]
 
-    pc, ac = sorted_pairs(rec_c["pairs"])
-    pg, ag = sorted_pairs(rec_g["pairs"])
-    check(np.array_equal(pc, pg), "candidate pairs differ CPU vs GPU")
-    check(np.array_equal(ac, ag), "screen ANI estimates differ CPU vs GPU")
-    vc, vg = rec_c["verified"], rec_g["verified"]
-    check(vc.keys() == vg.keys(), "verified pair sets differ CPU vs GPU")
-    dani = max(abs(vc[k][0] - vg[k][0]) for k in vc) if vc else 0.0
-    af_equal = all(vc[k][1:] == vg[k][1:] for k in vc)
-    check(dani <= ANI_TOL, f"verify ANI differs by {dani} > {ANI_TOL}")
-    check(af_equal, "verify AF differs CPU vs GPU")
-    check(tsv_c == tsv_g, "clusters.tsv differs CPU vs GPU")
-    n_clusters = _families_exact(tsv_g, paths, fam_ids)
-    log("parity", f"OK: {len(pc)} candidate pairs, {len(vc)} verified, "
-                  f"max |dANI| {dani:.3g}, AF equal, clusters.tsv identical "
-                  f"({n_clusters} clusters); CPU {wall_c:.2f} s, GPU {wall_g:.2f} s")
+    for mode, inputs, screen, flags in (
+        ("packed", dir_inputs, None, ()),
+        ("popcount", dir_inputs, "popcount", ()),
+        ("reference", ref_inputs, None, ()),
+        ("low-memory", dir_inputs, None, ("--low-memory",)),
+    ):
+        runs = {
+            dev: _run_cli(inputs, work, f"parity_{mode}_{dev}", dev,
+                          screen=screen, flags=flags)
+            for dev in ("cpu", "gpu")
+        }
+        (wall_c, _, tsv_c, rec_c, _), (wall_g, _, tsv_g, rec_g, _) = (
+            runs["cpu"], runs["gpu"])
+        check(rec_c["screen_dev"] == {"cpu"} and rec_g["screen_dev"] == {"cuda"},
+              f"{mode}: parity runs on the wrong devices")
+        pc, ac = sorted_pairs(rec_c["pairs"])
+        pg, ag = sorted_pairs(rec_g["pairs"])
+        check(np.array_equal(pc, pg), f"{mode}: candidate pairs differ")
+        check(np.array_equal(ac, ag), f"{mode}: screen ANI differs")
+        vc, vg = rec_c["verified"], rec_g["verified"]
+        check(vc.keys() == vg.keys(), f"{mode}: verified pair sets differ")
+        dani = max(abs(vc[k][0] - vg[k][0]) for k in vc) if vc else 0.0
+        check(dani <= ANI_TOL, f"{mode}: verify ANI differs by {dani}")
+        check(all(vc[k][1:] == vg[k][1:] for k in vc),
+              f"{mode}: verify AF differs")
+        check(tsv_c == tsv_g, f"{mode}: clusters.tsv differs CPU vs GPU")
+        n_clusters = _families_exact(tsv_g, paths, fam_ids)
+        log("parity", f"{mode} OK: {len(pc)} candidate pairs, {len(vc)} "
+                      f"verified, max |dANI| {dani:.3g}, AF equal, "
+                      f"clusters.tsv identical ({n_clusters} clusters); "
+                      f"CPU {wall_c:.2f} s, GPU {wall_g:.2f} s")
 
 
 def main() -> int:
@@ -343,22 +587,35 @@ def main() -> int:
 
     info = phase_device()
     phase_build()
-    kernel = phase_kernel()
+    kernels = phase_kernel()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build",
                                      prefix="chip_smoke_") as work:
-        launches = phase_main_path(work)
+        corpus, paths, fam_ids = make_main_corpus(work)
+        k1_launches, main_tsv = phase_main_path(work, corpus, paths, fam_ids)
+        k2_launches = phase_popcount_path(work, corpus, main_tsv)
+        phase_reference(work, paths, fam_ids)
+        phase_low_memory(work, corpus, main_tsv)
+        phase_scale()
         phase_parity(work)
-    print(json.dumps({"kernels": [{
-        "name": "packed_intersect_counts",
-        "route": "cuda",
-        "source": "galah_tpu_torch/csrc/packed_popcount.cu",
-        "replaces": "galah_tpu/ops/packed_matmul.py:46",
-        "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "packed_intersect_counts",
+            "route": "cuda",
+            "source": "galah_tpu_torch/csrc/packed_popcount.cu",
+            "replaces": "galah_tpu/ops/packed_matmul.py:46",
+            "launches": k1_launches,
+            **kernels["packed_intersect_counts"],
+        },
+        {
+            "name": "popcount_tile_counts",
+            "route": "cuda",
+            "source": "galah_tpu_torch/csrc/popcount_screen.cu",
+            "replaces": "galah_tpu/ops/popcount_screen.py:47",
+            "launches": k2_launches,
+            **kernels["popcount_tile_counts"],
+        },
+    ]}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

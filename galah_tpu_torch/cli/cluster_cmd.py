@@ -3,15 +3,18 @@
 
 Argument parsing, quality filtering and output writing are the JAX
 package's host code, imported unchanged; only the engine differs. The
-native engine is the only method: other precluster/cluster methods and
-the modes the port has not reached raise "not yet supported".
+native engine is the only method. Genome mode, reference-genome mode
+(--reference-genomes, --reference-genomes-list) and --low-memory run;
+other precluster/cluster methods and the modes the port has not reached
+raise "not yet supported".
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-from typing import List
+import sys
+from typing import List, Optional
 
 import torch
 
@@ -41,9 +44,6 @@ logger = logging.getLogger(__name__)
 # (argument attribute, flag) of the modes the port refuses.
 _UNSUPPORTED_FLAGS = (
     ("cluster_contigs", "--cluster-contigs"),
-    ("reference_genomes", "--reference-genomes"),
-    ("reference_genomes_list", "--reference-genomes-list"),
-    ("low_memory", "--low-memory"),
     ("sketch_directory", "--sketch-directory"),
     ("sweep_checkpoint", "--sweep-checkpoint"),
     ("output_distance_cache", "--output-distance-cache"),
@@ -66,7 +66,21 @@ def run_cluster(args: argparse.Namespace, device: torch.device) -> None:
     run_metrics = metrics.reset()
     genome_fasta_files = parse_list_of_genome_fasta_files(args)
 
-    galah = generate_galah_clusterer(genome_fasta_files, args, device)
+    # Reference genomes come first in the genome list, as in the
+    # reference CLI.
+    reference_genomes = _reference_genomes(args)
+    if reference_genomes is not None:
+        logger.info("Clustering against %d reference genomes",
+                    len(reference_genomes))
+        if args.cluster_contigs:
+            print("Error: Reference genome clustering is not currently "
+                  "supported with --cluster-contigs", file=sys.stderr)
+            raise SystemExit(1)
+        genome_fasta_files = list(reference_genomes) + genome_fasta_files
+
+    galah = generate_galah_clusterer(
+        genome_fasta_files, args, device, reference_genomes
+    )
 
     # Open outputs before heavy compute, as the reference does.
     outputs = setup_galah_outputs(args)
@@ -77,6 +91,7 @@ def run_cluster(args: argparse.Namespace, device: torch.device) -> None:
         galah["genome_fasta_paths"],
         galah["preclusterer"],
         galah["clusterer"],
+        reference_genomes=galah["reference_genomes"],
     )
     logger.info("Found %d genome clusters", len(clusters))
 
@@ -87,16 +102,39 @@ def run_cluster(args: argparse.Namespace, device: torch.device) -> None:
     logger.info("Finished printing genome clusters")
 
 
+def _reference_genomes(args: argparse.Namespace) -> Optional[List[str]]:
+    """Paths from --reference-genomes or --reference-genomes-list (the
+    first tab-separated field of each line), or None."""
+    if args.reference_genomes and args.reference_genomes_list:
+        raise SystemExit(
+            "Error: --reference-genomes and --reference-genomes-list are "
+            "mutually exclusive"
+        )
+    if args.reference_genomes:
+        return [p.split("\t")[0] for p in args.reference_genomes]
+    if args.reference_genomes_list:
+        with open(args.reference_genomes_list) as f:
+            return [
+                line.rstrip("\n").split("\t")[0] for line in f if line.strip()
+            ]
+    return None
+
+
 def generate_galah_clusterer(
     genome_fasta_paths: List[str],
     args: argparse.Namespace,
     device: torch.device,
+    reference_genomes: Optional[List[str]] = None,
 ) -> dict:
     """Quality-order genomes and construct the native engine pair. Both
-    methods are native, so the precluster pass runs at the final ANI."""
+    methods are native, so the precluster pass runs at the final ANI.
+    Reference genomes that fail the quality filter are dropped."""
     _refuse_unsupported(args)
     v2 = filter_genomes_through_quality(genome_fasta_paths, args, None, False)
     small_genomes = determine_small_genomes_setting(args, False)
+    if reference_genomes is not None:
+        passing = set(v2)
+        reference_genomes = [r for r in reference_genomes if r in passing]
 
     ani = parse_percentage(args.ani, "ani")
     min_af = parse_percentage(args.min_aligned_fraction, "min-aligned-fraction")
@@ -115,6 +153,7 @@ def generate_galah_clusterer(
         small_genomes=small_genomes,
         fragment_length=args.fragment_length,
         threads=args.threads,
+        low_memory=args.low_memory,
         max_genome_length=max_len,
     )
     ani_semantics = getattr(args, "ani_semantics", defaults.DEFAULT_ANI_SEMANTICS)
@@ -134,4 +173,5 @@ def generate_galah_clusterer(
         "genome_fasta_paths": v2,
         "preclusterer": preclusterer,
         "clusterer": clusterer,
+        "reference_genomes": reference_genomes,
     }

@@ -7,23 +7,30 @@ so every genome is sketched once per run. `distances()`:
 
 1. sketch every genome on the host (the C++ sketcher when it loads,
    threaded);
-2. screen all pairs with the packed triangle screen (ops/prefilter.py)
-   at a conservative containment cutoff;
+2. screen all pairs at a conservative containment cutoff: the packed
+   triangle screen (ops/prefilter.py), resident or streaming, or the
+   popcount screen (ops/popcount_screen.py) under
+   GALAH_TPU_SCREEN=popcount;
 3. verify the surviving pairs (ops/fragment_ani.py);
 4. return the pairs whose verified ANI and AF pass, as a sparse cache.
 
-The reference engine's other modes (low-memory streaming, contig
-clustering, reference genomes, the persistent sketch directory, the
-mid-sweep checkpoint) raise "not yet supported".
+`distances_with_references()` screens the (query, reference) rectangle
+instead (reference-genome mode). In low-memory mode sketches live in a
+disk store with a 64-sketch working set, the screens stream their blocks
+from the host, and verify runs in chunks of 64 genomes. The reference
+engine's other modes (contig clustering, the persistent sketch
+directory, the mid-sweep checkpoint, the u8 indicator screen) raise
+"not yet supported".
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,16 +44,88 @@ from galah_tpu.sketch.fracminhash import (
     sketch_file_native,
     small_genome_params,
 )
+from galah_tpu.sketch.store import DiskSketchStore
 from galah_tpu.utils import metrics
 from galah_tpu_torch.ops.fragment_ani import FragmentAniConfig, FragmentAniEngine
-from galah_tpu_torch.ops.prefilter import screen_triangle_packed
+from galah_tpu_torch.ops.popcount_screen import screen_triangle_popcount
+from galah_tpu_torch.ops.prefilter import (
+    ScreenResult,
+    screen_rectangle_packed,
+    screen_triangle_packed,
+)
 from galah_tpu_torch.utils.convert import pack_indicator
 
 logger = logging.getLogger(__name__)
 
+# Distinct genomes per verify batch in low-memory mode: about the disk
+# sketch store's working set (max_resident=64), as in the reference.
+LOW_MEMORY_VERIFY_KEYS = 64
+
 
 def not_supported(what: str) -> ValueError:
     return ValueError(f"{what} is not yet supported by galah_tpu_torch")
+
+
+class _DictStore:
+    """In-memory sketch store (default mode)."""
+
+    def __init__(self) -> None:
+        self._d: Dict[str, NativeSketch] = {}
+
+    def put(self, key: str, sketch: NativeSketch) -> None:
+        self._d[key] = sketch
+
+    def get(self, key: str) -> Optional[NativeSketch]:
+        return self._d.get(key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._d
+
+
+class _LazySketchList:
+    """List-like view over a sketch store: items load on access, so the
+    screen and verify never hold every sketch in RAM at once."""
+
+    def __init__(self, store, keys: List[str]) -> None:
+        self._store = store
+        self._keys = keys
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def __getitem__(self, i: int) -> NativeSketch:
+        return self._store.get(self._keys[i])
+
+    def __iter__(self):
+        for k in self._keys:
+            yield self._store.get(k)
+
+
+class _LazyPackedRows:
+    """Packed uint32 prefilter rows, packed on access."""
+
+    def __init__(self, sketches, bits: int) -> None:
+        self._sketches = sketches
+        self._bits = bits
+        # Lets the screens size their buffers without loading row 0.
+        self.row_width = bits // 32
+
+    def __len__(self) -> int:
+        return len(self._sketches)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return pack_indicator(self._sketches[i].prefilter_buckets, self._bits)
+
+
+def _screen_backend() -> str:
+    """The screen GALAH_TPU_SCREEN selects: "popcount" the popcount
+    screen; "indicator" (the reference's u8 indicator screen) is not
+    ported and raises; unset or any other value the packed screen, as
+    in the reference's fall-through."""
+    env = os.environ.get("GALAH_TPU_SCREEN")
+    if env == "indicator":
+        raise not_supported("GALAH_TPU_SCREEN=indicator")
+    return "popcount" if env == "popcount" else "packed"
 
 
 def _shrink_bits(
@@ -113,7 +192,7 @@ def _emit_verified(res, idx_by_key_pair, threshold_pct, min_af, cache):
 
 
 class NativeContext:
-    """Shared state: sketch params, in-memory sketch store, and the
+    """Shared state: sketch params, the sketch store, and the
     fragment-ANI engine on `device`."""
 
     def __init__(
@@ -122,6 +201,7 @@ class NativeContext:
         small_genomes: bool = False,
         fragment_length: Optional[int] = None,
         threads: int = 4,
+        low_memory: bool = False,
         params: Optional[NativeSketchParams] = None,
         max_genome_length: Optional[int] = None,
     ) -> None:
@@ -140,7 +220,19 @@ class NativeContext:
         self.device = device
         self._sketched_any = False
         self.threads = max(1, threads)
-        self._store: Dict[str, NativeSketch] = {}
+        self.low_memory = low_memory
+        if low_memory:
+            # Disk-backed sketch store with a 64-sketch LRU working set,
+            # in a temporary directory removed with the context.
+            self._spill_dir = tempfile.TemporaryDirectory(
+                prefix="galah-tpu-sketches-"
+            )
+            self._store = DiskSketchStore(
+                self._spill_dir.name, self.params,
+                max_resident=LOW_MEMORY_VERIFY_KEYS,
+            )
+        else:
+            self._store = _DictStore()
         self.frag_engine = FragmentAniEngine(
             FragmentAniConfig(
                 k=self.params.k,
@@ -188,6 +280,8 @@ class NativeContext:
             self.params = dataclasses.replace(
                 self.params, prefilter_bits=bits
             )
+            if hasattr(self._store, "set_params"):
+                self._store.set_params(self.params)
 
     def key_for(self, sketch: NativeSketch) -> str:
         return sketch.name
@@ -197,10 +291,13 @@ class NativeContext:
         if sk is None:
             self._sketched_any = True
             sk = sketch_file_native(path, self.params)
-            self._store[path] = sk
+            self._store.put(path, sk)
         return sk
 
-    def sketch_many(self, paths: Sequence[str]) -> List[NativeSketch]:
+    def sketch_many(self, paths: Sequence[str]) -> Sequence[NativeSketch]:
+        """Sketch every path not yet in the store. Returns the sketches
+        in `paths` order: a list, or in low-memory mode a lazy view that
+        loads them from the store on access."""
         missing = [p for p in dict.fromkeys(paths) if p not in self._store]
         if missing:
             logger.info("Sketching %d genomes ..", len(missing))
@@ -209,21 +306,24 @@ class NativeContext:
             with metrics.current().phase("sketch"):
                 if self.threads > 1 and len(missing) > 1:
                     with ThreadPoolExecutor(max_workers=self.threads) as ex:
-                        sketches = list(ex.map(
+                        sketches = ex.map(
                             lambda p: sketch_file_native(p, self.params),
                             missing,
-                        ))
+                        )
+                        for p, sk in zip(missing, sketches):
+                            self._store.put(p, sk)
+                            bases += sk.total_len
                 else:
-                    sketches = [
-                        sketch_file_native(p, self.params) for p in missing
-                    ]
-                for p, sk in zip(missing, sketches):
-                    self._store[p] = sk
-                    bases += sk.total_len
+                    for p in missing:
+                        sk = sketch_file_native(p, self.params)
+                        self._store.put(p, sk)
+                        bases += sk.total_len
             metrics.current().count("genomes_sketched", len(missing))
             metrics.current().count("sketch_bases", bases)
             logger.info("Finished sketching genomes")
-        return [self._store[p] for p in paths]
+        if self.low_memory:
+            return _LazySketchList(self._store, list(paths))
+        return [self._store.get(p) for p in paths]
 
 
 class NativePreclusterer(PreclusterDistanceFinder):
@@ -260,11 +360,67 @@ class NativePreclusterer(PreclusterDistanceFinder):
     def distances_contigs(self, genome_fasta_paths, contig_names):
         raise not_supported("--cluster-contigs")
 
-    def distances_with_references(self, genome_fasta_paths, reference_genomes):
-        raise not_supported("--reference-genomes")
+    def distances_with_references(
+        self, genome_fasta_paths: Sequence[str], reference_genomes: Sequence[str]
+    ) -> SortedPairDistanceCache:
+        """Cross-group comparisons only: each non-reference genome
+        against each reference, never within a group. Every screen
+        backend but the unported indicator one takes the packed
+        rectangle, as the reference does."""
+        ctx = self.ctx
+        sketches = ctx.sketch_many(genome_fasta_paths)
+        ref_set = set(reference_genomes)
+        ref_idx = [i for i, p in enumerate(genome_fasta_paths) if p in ref_set]
+        query_idx = [
+            i for i, p in enumerate(genome_fasta_paths) if p not in ref_set
+        ]
+        if not ref_idx or not query_idx:
+            return SortedPairDistanceCache()
+        _screen_backend()  # raises for the unported indicator screen
+        k = ctx.params.k
+        bits = ctx.params.prefilter_bits
+        min_cont = _screen_min_containment(
+            self.threshold, self.min_aligned_threshold, k
+        )
+        logger.info("Screening %d genomes against %d references ..",
+                    len(query_idx), len(ref_idx))
+        rows = _LazyPackedRows(sketches, bits)
+        res = self._timed_screen(
+            len(query_idx) * len(ref_idx), screen_rectangle_packed,
+            [rows[i] for i in query_idx],
+            np.asarray([sketches[i].n_prefilter for i in query_idx]),
+            [rows[i] for i in ref_idx],
+            np.asarray([sketches[i].n_prefilter for i in ref_idx]),
+            k, min_cont, bits, device=ctx.device,
+            cache_blocks=not ctx.low_memory,
+        )
+        if len(res.pairs) == 0:
+            return SortedPairDistanceCache()
+        remapped = np.stack([
+            np.asarray(query_idx, dtype=np.int64)[res.pairs[:, 0]],
+            np.asarray(ref_idx, dtype=np.int64)[res.pairs[:, 1]],
+        ], axis=1)
+        cache = self._verify_pairs(sketches, remapped)
+        self._report_indel_load(cache, lambda i: sketches[i])
+        return cache
 
     def method_name(self) -> str:
         return "native"
+
+    def _timed_screen(
+        self, n_pairs: int, screen: Callable[..., ScreenResult], *args,
+        **kwargs,
+    ) -> ScreenResult:
+        """screen(*args, **kwargs), its time added to the "screen"
+        phase."""
+        t0 = time.perf_counter()
+        res = screen(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        m = metrics.current()
+        m.phases["screen"] = m.phases.get("screen", 0.0) + dt
+        m.rate("screen_pairs_per_s", n_pairs, dt)
+        logger.info("Screen produced %d candidate pairs", len(res.pairs))
+        return res
 
     def _screen_and_verify(
         self, sketches: Sequence[NativeSketch]
@@ -277,20 +433,17 @@ class NativePreclusterer(PreclusterDistanceFinder):
         min_cont = _screen_min_containment(
             self.threshold, self.min_aligned_threshold, k
         )
-        t0 = time.perf_counter()
-        res = screen_triangle_packed(
-            [pack_indicator(s.prefilter_buckets, bits) for s in sketches],
+        if _screen_backend() == "popcount":
+            screen, opts = screen_triangle_popcount, {}
+        else:
+            screen = screen_triangle_packed
+            opts = {"cache_blocks": not ctx.low_memory}
+        res = self._timed_screen(
+            n * (n - 1) // 2, screen,
+            _LazyPackedRows(sketches, bits),
             np.asarray([s.n_prefilter for s in sketches]),
-            k,
-            min_cont,
-            bits,
-            device=ctx.device,
+            k, min_cont, bits, device=ctx.device, **opts,
         )
-        dt = time.perf_counter() - t0
-        m = metrics.current()
-        m.phases["screen"] = m.phases.get("screen", 0.0) + dt
-        m.rate("screen_pairs_per_s", n * (n - 1) / 2, dt)
-        logger.info("Screen produced %d candidate pairs", len(res.pairs))
         if len(res.pairs) == 0:
             return SortedPairDistanceCache()
         cache = self._verify_pairs(sketches, res.pairs)
@@ -354,26 +507,43 @@ class NativePreclusterer(PreclusterDistanceFinder):
     def _verify_pairs(
         self, sketches: Sequence[NativeSketch], pairs: np.ndarray
     ) -> SortedPairDistanceCache:
-        """One bidirectional batch over every candidate pair."""
+        """One bidirectional batch over every candidate pair; in
+        low-memory mode a batch per LOW_MEMORY_VERIFY_KEYS distinct
+        genomes, so at most about the disk store's working set is held
+        at a time. Results are per pair, so the chunking changes none
+        of them."""
         ctx = self.ctx
         threshold_pct = self.threshold
         min_af = self.min_aligned_threshold
         cache = SortedPairDistanceCache()
         t0 = time.perf_counter()
+        keys = (
+            sketches._keys if isinstance(sketches, _LazySketchList) else None
+        )
+        chunk_keys = LOW_MEMORY_VERIFY_KEYS if ctx.low_memory else None
+
+        def flush(key_pairs, sketches_by_key, idx_by_key_pair):
+            res = ctx.frag_engine.bidirectional(key_pairs, sketches_by_key)
+            _emit_verified(res, idx_by_key_pair, threshold_pct, min_af, cache)
+
         sketches_by_key: Dict[str, NativeSketch] = {}
         key_pairs: List[Tuple[str, str]] = []
         idx_by_key_pair: Dict[Tuple[str, str], List[Tuple[int, int]]] = {}
         for i, j in pairs:
             i, j = int(i), int(j)
-            ki = ctx.key_for(sketches[i])
-            kj = ctx.key_for(sketches[j])
-            sketches_by_key.setdefault(ki, sketches[i])
-            sketches_by_key.setdefault(kj, sketches[j])
+            ki = keys[i] if keys else ctx.key_for(sketches[i])
+            kj = keys[j] if keys else ctx.key_for(sketches[j])
+            if ki not in sketches_by_key:
+                sketches_by_key[ki] = sketches[i]
+            if kj not in sketches_by_key:
+                sketches_by_key[kj] = sketches[j]
             key_pairs.append((ki, kj))
             idx_by_key_pair.setdefault((ki, kj), []).append((i, j))
+            if chunk_keys and len(sketches_by_key) >= chunk_keys:
+                flush(key_pairs, sketches_by_key, idx_by_key_pair)
+                sketches_by_key, key_pairs, idx_by_key_pair = {}, [], {}
         if key_pairs:
-            res = ctx.frag_engine.bidirectional(key_pairs, sketches_by_key)
-            _emit_verified(res, idx_by_key_pair, threshold_pct, min_af, cache)
+            flush(key_pairs, sketches_by_key, idx_by_key_pair)
         dt = time.perf_counter() - t0
         m = metrics.current()
         m.phases["verify"] = m.phases.get("verify", 0.0) + dt

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Every `.cu` file in galah_tpu_torch/csrc/ is compiled with nvcc, on
-first use, into one shared library with a plain C interface:
+first use, into one shared library with a plain C interface: one nvcc
+per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o libgalah_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o libgalah_kernels.so *.o
 
 The library lands in build/galah_tpu_torch/<sha256>/ at the root of the
 checkout, keyed by the sources and flags, and is loaded with ctypes.
@@ -31,9 +34,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "galah_tpu_torch"
 LIB_NAME = "libgalah_kernels.so"
 
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -86,23 +89,38 @@ def build_library() -> BuildResult:
         return BuildResult(lib, log, 0.0, True)
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Build to a temporary name and rename, so a concurrent process
-    # never loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return BuildResult(lib, log, seconds, False)
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        objs = [os.path.join(work, p.stem + ".o") for p in srcs]
+        logs = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
+            for p, o in zip(srcs, objs)
+        ])
+        # Link to a temporary name and rename, so a concurrent process
+        # never loads a half-written library.
+        tmp = os.path.join(work, LIB_NAME)
+        logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        log = "".join(logs)
+        log_path.write_text(log)
+        os.replace(tmp, lib)
+    return BuildResult(lib, log, time.perf_counter() - t0, False)
+
+
+def _run_all(cmds: List[List[str]]) -> List[str]:
+    """Start every command at once and wait for all of them; their
+    outputs, or a RuntimeError with the first failure's output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}"
+            )
+    return outs
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,11 +128,13 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argtypes and restype declared."""
     lib = ctypes.CDLL(str(build_library().path))
-    fn = lib.galah_packed_popcount
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    # Both entries take (a, b, out, m, n, w, stream) and return a CUDA
+    # error code.
+    for fn in (lib.galah_packed_popcount, lib.galah_popcount_screen):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     return lib

@@ -1,8 +1,9 @@
 """All-vs-all sketch-intersection screen (counterpart of galah_tpu/ops/prefilter.py).
 
 Genome prefilter sketches are packed uint32 bitmap rows (int32 tensors
-holding the same bits). The packed matrix is uploaded once and the
-upper triangle of (block x block) tiles is swept in order; per tile:
+holding the same bits). A sweep walks (block x block) tiles: the upper
+triangle of one matrix (screen_triangle_packed) or every (query block,
+reference block) tile of a rectangle (screen_rectangle_packed); per tile:
 
 1. intersection counts, from the packed-popcount kernel
    (ops/packed_matmul.py);
@@ -11,18 +12,25 @@ upper triangle of (block x block) tiles is swept in order; per tile:
 3. the float32 cutoff and, on diagonal tiles, the strict-upper mask;
 4. hit extraction with torch.nonzero on the device, row-major; only
    the hits leave the device, their values rounded to bfloat16;
-5. host decode under the reference's emit rules (_emit_tile), including
-   its overflow rule: a tile with more than `cap` hits is decided on the
-   bfloat16-rounded containment, as the reference's dense fallback does.
+5. host decode under the reference's emit rules (_emit_tile).
 
-Pairs come out tile by tile in (bi, bj >= bi) order, row-major within a
-tile, with i < j, exactly as the reference's resident sweep emits them.
+Resident sweeps upload the packed matrix once and slice its tiles;
+streaming sweeps (low-memory mode, or a matrix over the device budget)
+upload each tile's row blocks from the host row sequence. The two keep
+the reference's two overflow rules (_screen_tile): a resident tile is
+decided on its bfloat16-rounded containment (the reference's dense
+fallback) only past `cap` hits; a streaming tile also when its hits
+span more than `_row_sel(rows)` rows, because the reference has no
+resident matrix to re-extract such a tile from.
+
+Pairs come out tile by tile in sweep order, row-major within a tile,
+exactly as the reference's sweeps emit them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,12 +41,26 @@ from galah_tpu_torch.utils.convert import words_to_torch
 
 DEFAULT_BLOCK = 1024
 
+# Hit-row capacity of the reference's two-level sparse extraction
+# (galah_tpu/ops/prefilter.py ROW_SEL): a streaming tile whose hits span
+# more rows is decided densely.
+ROW_SEL = 128
+
+# (packed rows, sizes) of one block on the device.
+Block = Tuple[torch.Tensor, torch.Tensor]
+# One tile's decision: (si, sj, ai, aj, diag) -> (ii, jj, vals) host
+# arrays of its hits, row-major.
+TileFn = Callable[
+    [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, bool],
+    Tuple[np.ndarray, np.ndarray, np.ndarray],
+]
+
 
 @dataclass(frozen=True)
 class ScreenResult:
     """Above-cutoff candidate pairs with containment-ANI estimates."""
 
-    pairs: np.ndarray    # (P, 2) int64 — indices, i < j
+    pairs: np.ndarray    # (P, 2) int64 — (i, j) with i < j, or (query, ref)
     ani_est: np.ndarray  # (P,) float32 — percentage scale
 
 
@@ -52,6 +74,21 @@ def _screen_cap_for(block: int) -> int:
     its bfloat16 containment (the dense fallback); _screen_tile keeps
     that rule so the pair set matches at any hit count."""
     return 16384 * max(1, block // 1024)
+
+
+def _row_sel(rows: int) -> int:
+    """Hit rows the reference's two-level extraction holds for a tile
+    of `rows` rows (galah_tpu/ops/prefilter.py _extract_above_cutoff)."""
+    return min(rows, max(ROW_SEL, rows // 16))
+
+
+def _device_resident_budget(device: torch.device) -> int:
+    """Bytes the packed matrix may take on `device` and stay resident:
+    half the card's memory on CUDA, 4 GiB on the CPU (the reference's
+    rule and CPU figure)."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[1] // 2
+    return 4 << 30
 
 
 def _containment(
@@ -78,9 +115,15 @@ def _screen_tile(
     min_cont_f: float,
     cap: int,
     diag: bool,
+    streaming: bool,
 ):
     """One tile: (ii, jj, vals) host arrays of its hits, row-major, with
-    vals the bfloat16-rounded containment as float32."""
+    vals the bfloat16-rounded containment as float32.
+
+    The tile is decided on its float32 containment unless it has more
+    than `cap` hits or, when `streaming`, its hits span more than
+    _row_sel rows: then on its bfloat16 containment, against the same
+    float32 cutoff (the reference's dense path)."""
     counts = packed_intersect_counts(si, sj).to(torch.float32)
     cont = _containment(counts, ai, aj, bits_f)
     upper = None
@@ -91,9 +134,10 @@ def _screen_tile(
     mask = cont >= min_cont_f
     if upper is not None:
         mask &= upper
-    if int(mask.sum()) > cap:
-        # The reference's overflow path: the tile's bfloat16 containment
-        # against the same float32 cutoff.
+    dense = int(mask.sum()) > cap
+    if streaming and not dense:
+        dense = int(mask.any(dim=1).sum()) > _row_sel(mask.shape[0])
+    if dense:
         mask = cont.to(torch.bfloat16).to(torch.float32) >= min_cont_f
         if upper is not None:
             mask &= upper
@@ -127,6 +171,84 @@ def _emit_tile(
         anis.append((v ** inv_k * 100.0).astype(np.float32))
 
 
+def _packed_tile(
+    bits: int, min_containment: float, block: int, streaming: bool
+) -> TileFn:
+    """The packed screens' per-tile decision (_screen_tile) for _sweep."""
+    cap = _screen_cap_for(block)
+    min_cont_f = float(np.float32(min_containment))
+    return lambda si, sj, ai, aj, diag: _screen_tile(
+        si, sj, ai, aj, float(bits), min_cont_f, cap,
+        diag=diag, streaming=streaming,
+    )
+
+
+def _sweep(
+    row_block: Callable[[int], Block],
+    col_block: Callable[[int], Block],
+    n_rows: int,
+    n_cols: int,
+    *,
+    triangle: bool,
+    tile: TileFn,
+    block: int,
+    k: int,
+) -> ScreenResult:
+    """Every tile of a sweep, in the reference's order: row block bi
+    once per row of tiles, then column blocks bj >= bi (triangle; the
+    diagonal tile reuses the row block) or every bj (rectangle).
+    `tile(si, sj, ai, aj, diag)` decides one tile: its hits (ii, jj)
+    and their containment values, row-major."""
+    inv_k = 1.0 / k
+    pairs: List[np.ndarray] = []
+    anis: List[np.ndarray] = []
+    for bi in range(-(-n_rows // block)):
+        si, ai = row_block(bi)
+        for bj in range(bi if triangle else 0, -(-n_cols // block)):
+            diag = triangle and bj == bi
+            sj, aj = (si, ai) if diag else col_block(bj)
+            ii, jj, vals = tile(si, sj, ai, aj, diag)
+            _emit_tile(
+                ii, jj, vals, row0=bi * block, col0=bj * block,
+                inv_k=inv_k, pairs=pairs, anis=anis,
+            )
+    if pairs:
+        return ScreenResult(np.concatenate(pairs), np.concatenate(anis))
+    return _empty_result()
+
+
+def _row_width(packed: Sequence[np.ndarray]) -> int:
+    """Words per row, from the sequence's `row_width` hint when it has
+    one (lazy rows), else from row 0."""
+    return getattr(packed, "row_width", None) or len(packed[0])
+
+
+def _host_block(
+    packed: Sequence[np.ndarray], sizes_f: np.ndarray, lo: int, hi: int,
+    device: torch.device,
+) -> Block:
+    """Rows [lo, hi) of a host row sequence, uploaded to `device`."""
+    mat = np.stack([np.asarray(packed[t]) for t in range(lo, hi)])
+    return (
+        words_to_torch(mat).to(device),
+        torch.from_numpy(sizes_f[lo:hi]).to(device),
+    )
+
+
+def _streamer(
+    packed: Sequence[np.ndarray], sizes_f: np.ndarray, block: int,
+    device: torch.device,
+) -> Callable[[int], Block]:
+    n = len(packed)
+    return lambda b: _host_block(
+        packed, sizes_f, b * block, min(n, (b + 1) * block), device
+    )
+
+
+def _slicer(x: torch.Tensor, s: torch.Tensor, block: int):
+    return lambda b: (x[b * block:(b + 1) * block], s[b * block:(b + 1) * block])
+
+
 def screen_triangle_packed(
     packed: Sequence[np.ndarray],
     sizes: np.ndarray,
@@ -135,39 +257,81 @@ def screen_triangle_packed(
     bits: int,
     device: torch.device,
     block: int = DEFAULT_BLOCK,
+    cache_blocks: bool = True,
 ) -> ScreenResult:
     """Upper-triangle screen over packed uint32 bitmap rows.
 
-    packed: n rows of (bits/32,) uint32 words; sizes: (n,) set sizes.
-    The whole packed matrix is uploaded to `device` once and the tiles
-    are slices of it."""
+    packed: n rows of (bits/32,) uint32 words (any sequence; rows are
+    read by index); sizes: (n,) set sizes. The packed matrix is uploaded
+    to `device` once and the tiles are slices of it, unless
+    cache_blocks=False (low-memory mode) or the matrix exceeds
+    _device_resident_budget: then each tile's blocks stream from the
+    host (the reference's streaming branch, with its overflow rule)."""
     n = len(packed)
     if n == 0:
         return _empty_result()
-    x = words_to_torch(np.stack([np.asarray(r) for r in packed])).to(device)
-    s = torch.from_numpy(np.asarray(sizes).astype(np.float32)).to(device)
-    inv_k = 1.0 / k
-    cap = _screen_cap_for(block)
-    min_cont_f = float(np.float32(min_containment))
-    bits_f = float(bits)
-    nblocks = -(-n // block)
-    m = metrics.current()
-    pairs: List[np.ndarray] = []
-    anis: List[np.ndarray] = []
-    for bi in range(nblocks):
-        ri = slice(bi * block, min(n, (bi + 1) * block))
-        for bj in range(bi, nblocks):
-            rj = slice(bj * block, min(n, (bj + 1) * block))
-            m.count("screen_tiles", 1)
-            m.count("screen_pairs_computed", block * block)
-            ii, jj, vals = _screen_tile(
-                x[ri], x[rj], s[ri], s[rj], bits_f, min_cont_f, cap,
-                diag=bi == bj,
-            )
-            _emit_tile(
-                ii, jj, vals, row0=bi * block, col0=bj * block,
-                inv_k=inv_k, pairs=pairs, anis=anis,
-            )
-    if pairs:
-        return ScreenResult(np.concatenate(pairs), np.concatenate(anis))
-    return _empty_result()
+    sizes_f = np.asarray(sizes).astype(np.float32)
+    w = _row_width(packed)
+    kw = dict(triangle=True, block=block, k=k)
+    if cache_blocks and n * w * 4 <= _device_resident_budget(device):
+        x, s = _host_block(packed, sizes_f, 0, n, device)
+        tiles = -(-n // block) * (-(-n // block) + 1) // 2
+        m = metrics.current()
+        m.count("screen_tiles", tiles)
+        m.count("screen_pairs_computed", tiles * block * block)
+        get = _slicer(x, s, block)
+        tile = _packed_tile(bits, min_containment, block, streaming=False)
+        return _sweep(get, get, n, n, tile=tile, **kw)
+    stream = _streamer(packed, sizes_f, block, device)
+    tile = _packed_tile(bits, min_containment, block, streaming=True)
+    return _sweep(stream, stream, n, n, tile=tile, **kw)
+
+
+def screen_rectangle_packed(
+    query_packed: Sequence[np.ndarray],
+    query_sizes: np.ndarray,
+    ref_packed: Sequence[np.ndarray],
+    ref_sizes: np.ndarray,
+    k: int,
+    min_containment: float,
+    bits: int,
+    device: torch.device,
+    block: int = DEFAULT_BLOCK,
+    cache_blocks: bool = True,
+) -> ScreenResult:
+    """Cross-group screen (reference-genome mode): every (query block,
+    reference block) tile, never a diagonal. Returns (query_idx,
+    ref_idx) pairs. Queries and references form one resident matrix,
+    unless cache_blocks=False (low-memory mode) or the rectangle
+    exceeds _device_resident_budget: then blocks stream from the host,
+    with the streaming overflow rule. The budget check counts the
+    block-padded rows the reference's resident matrix holds, so both
+    packages take the same branch."""
+    nq, nr = len(query_packed), len(ref_packed)
+    if nq == 0 or nr == 0:
+        return _empty_result()
+    qs = np.asarray(query_sizes).astype(np.float32)
+    rs = np.asarray(ref_sizes).astype(np.float32)
+    w = _row_width(query_packed)
+    kw = dict(triangle=False, block=block, k=k)
+    padded_rows = -(-nq // block) * block + -(-nr // block) * block
+    if cache_blocks and padded_rows * w * 4 <= _device_resident_budget(device):
+        mat = np.stack([np.asarray(query_packed[t]) for t in range(nq)]
+                       + [np.asarray(ref_packed[t]) for t in range(nr)])
+        x = words_to_torch(mat).to(device)
+        s = torch.from_numpy(np.concatenate([qs, rs])).to(device)
+        del mat
+        return _sweep(
+            _slicer(x[:nq], s[:nq], block), _slicer(x[nq:], s[nq:], block),
+            nq, nr,
+            tile=_packed_tile(bits, min_containment, block, streaming=False),
+            **kw,
+        )
+    return _sweep(
+        _streamer(query_packed, qs, block, device),
+        _streamer(ref_packed, rs, block, device),
+        nq, nr,
+        tile=_packed_tile(bits, min_containment, block, streaming=True),
+        **kw,
+    )
+

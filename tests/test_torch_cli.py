@@ -54,6 +54,110 @@ def test_clusters_tsv_identical_to_jax_package(corpus, tmp_path, monkeypatch):
     assert sorted(f.pop() for f in clusters.values()) == [0, 1, 2, 3]
 
 
+def _both_clis(argv, tmp_path, monkeypatch, screen, expect):
+    """clusters.tsv of the JAX CLI and the port's on the same argv,
+    after checking that the port ran the screen `expect` names, as
+    (function, cache_blocks)."""
+    from galah_tpu_torch.engines import native
+
+    calls = []
+
+    def spy(fn):
+        def run(*a, **k):
+            calls.append((fn.__name__, k.get("cache_blocks")))
+            return fn(*a, **k)
+        return run
+
+    for name in ("screen_triangle_packed", "screen_triangle_popcount",
+                 "screen_rectangle_packed"):
+        monkeypatch.setattr(native, name, spy(getattr(native, name)))
+    monkeypatch.setenv("GALAH_TPU_SCREEN", screen)
+    monkeypatch.setenv("GALAH_TPU_VERIFY_DEVICES", "1")
+    monkeypatch.delenv("GALAH_TPU_PLATFORM", raising=False)
+    out = []
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        if name == "torch":
+            monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
+        tsv = tmp_path / f"{name}.tsv"
+        assert main(argv + ["--output-cluster-definition", str(tsv)]) == 0
+        out.append(tsv.read_bytes())
+    assert calls == [expect]
+    assert out[0] == out[1]
+    return out[1].decode()
+
+
+def _families(tsv, paths, fams):
+    """{representative: set of member families}, every cluster one family."""
+    fam_of = dict(zip(paths, fams))
+    clusters = {}
+    for line in tsv.splitlines():
+        rep, member = line.split("\t")
+        clusters.setdefault(rep, set()).add(fam_of[member])
+    assert all(len(f) == 1 for f in clusters.values())
+    return clusters
+
+
+@pytest.mark.parametrize("mode,screen,expect", [
+    (["--low-memory"], "packed", ("screen_triangle_packed", False)),
+    ([], "popcount", ("screen_triangle_popcount", None)),
+])
+def test_low_memory_and_popcount_match_jax_package(
+    corpus, tmp_path, monkeypatch, mode, screen, expect
+):
+    d, paths, fams = corpus
+    argv = ["cluster", "-d", d, "-x", "fna", "--ani", "95", "-q"] + mode
+    tsv = _both_clis(argv, tmp_path, monkeypatch, screen, expect)
+    assert len(_families(tsv, paths, fams)) == 4
+
+
+def test_reference_genomes_list_matches_jax_package(
+    corpus, tmp_path, monkeypatch
+):
+    """The first genome of each family is a reference; the rest are
+    clustered against them: one cluster per family, holding its
+    reference."""
+    d, paths, fams = corpus
+    refs = [paths[fams.index(f)] for f in sorted(set(fams))]
+    (tmp_path / "refs.txt").write_text("".join(p + "\n" for p in refs))
+    (tmp_path / "genomes.txt").write_text(
+        "".join(p + "\n" for p in paths if p not in refs))
+    argv = ["cluster", "--genome-fasta-list", str(tmp_path / "genomes.txt"),
+            "--reference-genomes-list", str(tmp_path / "refs.txt"),
+            "--ani", "95", "-q"]
+    tsv = _both_clis(argv, tmp_path, monkeypatch, "packed",
+                     ("screen_rectangle_packed", True))
+    clusters = _families(tsv, paths, fams)
+    assert len(clusters) == 4
+    members = {}
+    for line in tsv.splitlines():
+        rep, member = line.split("\t")
+        members.setdefault(rep, set()).add(member)
+    assert all(len(set(refs) & m) == 1 for m in members.values())
+
+
+def test_reference_flags_are_exclusive_and_refuse_contigs(
+    corpus, tmp_path, monkeypatch
+):
+    d, paths, _ = corpus
+    monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
+    base = _cluster_argv(d, tmp_path / "x.tsv")
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        torch_main(base + ["--reference-genomes", paths[0],
+                           "--reference-genomes-list", "refs.txt"])
+    with pytest.raises(SystemExit):
+        torch_main(base + ["--reference-genomes", paths[0],
+                           "--cluster-contigs", "--small-contigs"])
+    assert not (tmp_path / "x.tsv").exists()
+
+
+def test_indicator_screen_is_refused(corpus, tmp_path, monkeypatch, capsys):
+    d, _, _ = corpus
+    monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv("GALAH_TPU_SCREEN", "indicator")
+    assert torch_main(_cluster_argv(d, tmp_path / "x.tsv")) == 1
+    assert "not yet supported by galah_tpu_torch" in capsys.readouterr().err
+
+
 def test_module_entry_point_never_imports_jax(corpus, tmp_path):
     d, _, _ = corpus
     out = tmp_path / "sub.tsv"
@@ -101,7 +205,7 @@ def test_resolve_device(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--low-memory"],
+    ["--output-distance-cache", "d.npz"],
     ["--cluster-contigs", "--small-contigs"],
     ["--precluster-method", "finch"],
     ["--cluster-method", "fastani"],

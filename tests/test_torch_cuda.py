@@ -1,6 +1,6 @@
-"""galah_tpu_torch on a CUDA device: the hand-written kernel against its
-plain version, and the screen and verify on the card against the same
-code on the CPU.
+"""galah_tpu_torch on a CUDA device: the hand-written kernels against
+their plain versions, and the screens and verify on the card against the
+same code on the CPU.
 
 Every test needs a card and skips without one (the `cuda_device`
 fixture decides at run time). This file imports neither JAX nor any
@@ -18,6 +18,10 @@ import torch
 from galah_tpu_torch.ops.packed_matmul import (
     packed_intersect_counts,
     packed_intersect_counts_reference,
+)
+from galah_tpu_torch.ops.popcount_screen import (
+    popcount_tile_counts,
+    popcount_tile_counts_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -55,6 +59,25 @@ def test_kernel_matches_plain_version(cuda_device, m, n, w):
     assert torch.equal(got, packed_intersect_counts_reference(a, b))
 
 
+@pytest.mark.parametrize(
+    "m,n,w",
+    [(2048, 2048, 4096), (1000, 777, 1000), (1, 33, 513), (9, 300, 8192)],
+)
+def test_popcount_kernel_matches_plain_version(cuda_device, m, n, w):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m + n + w)
+    a = _random_words(gen, (m, w), cuda_device)
+    b = _random_words(gen, (n, w), cuda_device)
+    a[0] = 0
+    b[-1] = -1
+    before = popcount_tile_counts.launches
+    got = popcount_tile_counts(a, b)
+    torch.cuda.synchronize()
+    assert popcount_tile_counts.launches == before + 1
+    assert torch.equal(got, popcount_tile_counts_reference(a, b))
+    assert torch.equal(got, packed_intersect_counts(a, b))
+
+
 def test_kernel_reads_row_slices_of_a_resident_matrix(cuda_device):
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(3)
@@ -88,6 +111,52 @@ def test_screen_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(gpu.pairs, cpu.pairs)
     np.testing.assert_array_equal(gpu.ani_est, cpu.ani_est)
     assert len(cpu.pairs) >= 3
+
+
+def _near_duplicate_rows(seed, n, n_near, bits=4096):
+    rng = np.random.default_rng(seed)
+    base = rng.random(bits) < 0.2
+    keep = rng.uniform(0.5, 0.95, size=(n_near, 1))
+    ind = rng.random((n, bits)) < 0.05
+    ind[:n_near] = base & (rng.random((n_near, bits)) < keep)
+    return ind, [np.packbits(r, bitorder="little").view(np.uint32) for r in ind]
+
+
+@pytest.mark.parametrize("cache_blocks", [True, False])
+def test_triangle_screens_on_card_match_cpu(cuda_device, cache_blocks):
+    from galah_tpu_torch.ops.popcount_screen import screen_triangle_popcount
+    from galah_tpu_torch.ops.prefilter import screen_triangle_packed
+
+    ind, packed = _near_duplicate_rows(2, 300, 150)
+    args = (packed, ind.sum(axis=1), 15, 0.69, ind.shape[1])
+    for screen, kw in (
+        (screen_triangle_packed, dict(block=256, cache_blocks=cache_blocks)),
+        (screen_triangle_popcount, dict(block=128)),
+    ):
+        cpu = screen(*args, device=CPU, **kw)
+        gpu = screen(*args, device=cuda_device, **kw)
+        np.testing.assert_array_equal(gpu.pairs, cpu.pairs)
+        np.testing.assert_array_equal(gpu.ani_est, cpu.ani_est)
+        assert len(cpu.pairs) > 1000
+
+
+@pytest.mark.parametrize("cache_blocks", [True, False])
+def test_rectangle_screen_on_card_matches_cpu(cuda_device, cache_blocks):
+    from galah_tpu_torch.ops.prefilter import screen_rectangle_packed
+
+    ind, packed = _near_duplicate_rows(4, 500, 250)
+    sizes = ind.sum(axis=1)
+    q = list(range(150)) + list(range(250, 400))
+    r = list(range(150, 250)) + list(range(400, 500))
+    args = ([packed[i] for i in q], sizes[q], [packed[i] for i in r],
+            sizes[r], 15, 0.69, ind.shape[1])
+    cpu = screen_rectangle_packed(*args, device=CPU, block=256,
+                                  cache_blocks=cache_blocks)
+    gpu = screen_rectangle_packed(*args, device=cuda_device, block=256,
+                                  cache_blocks=cache_blocks)
+    np.testing.assert_array_equal(gpu.pairs, cpu.pairs)
+    np.testing.assert_array_equal(gpu.ani_est, cpu.ani_est)
+    assert len(cpu.pairs) > 1000
 
 
 def test_verify_on_card_matches_cpu(cuda_device, tmp_path):

@@ -153,3 +153,32 @@ def test_bidirectional_matches_jax_with_routing(corpus, monkeypatch):
 
     fam = [(a, b) for a, b in pairs if family(a) == family(b)]
     assert all(got[p][0] > 95.0 for p in fam)
+
+
+def test_low_memory_engine_matches_default(corpus, monkeypatch):
+    """Low-memory mode: sketches round-trip through the disk store, the
+    screen streams, and verify runs in batches of three genomes. The
+    distance cache must equal the default mode's."""
+    from galah_tpu.sketch.store import DiskSketchStore
+    from galah_tpu_torch.engines import native
+
+    small, large, params, _ = corpus
+    monkeypatch.setattr(native, "LOW_MEMORY_VERIFY_KEYS", 3)
+    batches = []
+    run = fa.FragmentAniEngine.bidirectional
+    monkeypatch.setattr(
+        fa.FragmentAniEngine, "bidirectional",
+        lambda self, pairs, sk: batches.append(len(sk)) or run(self, pairs, sk),
+    )
+    out = []
+    for low_memory in (False, True):
+        ctx = native.NativeContext(CPU, params=params, threads=2,
+                                   low_memory=low_memory)
+        cache = native.NativePreclusterer(95.0, 0.15, ctx).distances(
+            small + large
+        )
+        assert isinstance(ctx._store, DiskSketchStore) == low_memory
+        out.append(dict(cache.items()))
+    assert out[0] == out[1]
+    assert len(out[0]) >= 16
+    assert len(batches) > 2 and max(batches[1:]) <= 4
