@@ -13,7 +13,15 @@ exits non-zero):
    the card, bit-exact, at the shapes its screen gives it, with CUDA-event
    times: the packed-popcount kernel (K1) at the packed screen's tiles,
    the popcount-screen kernel (K2) at the popcount screen's tiles beside
-   its plain version and K1 at the same shapes;
+   its plain version and K1 at the same shapes; beside both, the library
+   call that computes the same counts, torch._int_mm on the rows unpacked
+   to int8 0/1 (unpacked outside the timed window), where its shape rules
+   allow it;
+   gather: the gather probe's entry point (galah_tpu_torch.tools.
+   gather_probe.run_probe) at the reference probe's shape (2^17 indices
+   into a 4 MiB table) and at a 256 MiB table, K3 at unroll 1, 4 and 8
+   and K4 at 8, 16 and 32, with index_select timed beside them; then each
+   setting of both kernels against the plain version, bit-exact;
 4. main path: `galah_tpu_torch cluster` over 1024 synthetic 1 Mb genomes
    (128 families of 8, 98% ANI within a family) must find exactly the
    128 families, through K1, with screen and verify on the card;
@@ -35,7 +43,8 @@ exits non-zero):
    points, equal AF and the same clusters.tsv.
 
 Each path's kernel launch counts are set to 0 just before its run and
-read just after. The last lines are the kernels' JSON summary, the
+read just after. The C++ sketcher must load: the numpy fallback would
+change the sketch times many times over. The last lines are the kernels' JSON summary, the
 nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device
 the script exits 1 and prints no result. The synthetic corpora are
 written under build/ and removed at the end.
@@ -77,6 +86,18 @@ K1_SHAPES = ((1024, 1024, 8192), (1024, 1024, 4096), REFERENCE_TILE,
              (1000, 777, 1000))
 K2_SHAPES = ((1024, 1024, 4096), (2048, 2048, 4096), (2048, 2048, 8192),
              (1000, 777, 1000))
+# The shape whose times go into the kernels' JSON line, and for the
+# gather kernels the unroll (the one both run).
+K12_SUMMARY_SHAPE = (1024, 1024, 4096)
+GATHER_SUMMARY_UNROLL = 8
+GATHER_SEED = 0
+GATHER_ITERS = 50
+# Published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM
+# bytes/s, int8 tensor-core operations/s, float32 operations/s outside
+# the tensor cores (the rate taken for 32-bit integer ALU work).
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+FP32_OPS_PER_S = 67e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -171,9 +192,54 @@ def _max_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def _bound_ms(bytes_moved: float, ops: float, ops_per_s: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _counts_bound(m: int, n: int, w: int):
+    """Intersection counts of (m, w) and (n, w) words as an int8 0/1
+    product on the tensor cores: 2 m n 32w operations; bytes: both
+    operands read once, the int32 counts written once."""
+    return _bound_ms(4 * (m * w + n * w + m * n), 2 * m * n * 32 * w,
+                     INT8_OPS_PER_S)
+
+
+def _unpack_int8(x):
+    """(m, w) int32 words -> (m, 32 w) int8 0/1 bits, word-major."""
+    import torch
+
+    shifts = torch.arange(32, dtype=torch.int32, device=x.device)
+    return ((x[:, :, None] >> shifts) & 1).to(torch.int8).reshape(
+        x.shape[0], -1)
+
+
+def _library_counts(a, b, want):
+    """ms of torch._int_mm on the rows unpacked to int8 0/1, the one
+    library call that gives the same counts (exact: every count is below
+    2^31), after checking it does; None where _int_mm refuses the shape
+    (it wants n and the bit width in multiples of 8). The unpack is
+    outside the timed window."""
+    import torch
+
+    if a.shape[0] <= 16 or b.shape[0] % 8 or (32 * a.shape[1]) % 8:
+        return None
+    a8, b8t = _unpack_int8(a), _unpack_int8(b).t()
+    got = torch._int_mm(a8, b8t)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "torch._int_mm counts differ")
+    ms = _time_ms(lambda: torch._int_mm(a8, b8t), 20)
+    del a8, b8t
+    return ms
+
+
 def phase_kernel() -> dict:
     """Each kernel against its plain version, bit-exact; returns per
-    kernel the largest error and the times at its path's tile shape."""
+    kernel the largest error, the times at K12_SUMMARY_SHAPE and the
+    bound there."""
     import torch
 
     from galah_tpu_torch.ops.packed_matmul import (
@@ -189,6 +255,10 @@ def phase_kernel() -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     out = {}
+    summary = "{}x{}xW{}".format(*K12_SUMMARY_SHAPE)
+    bound_ms, bound_by = _counts_bound(*K12_SUMMARY_SHAPE)
+    log("kernel", f"counts bound at {summary}: {bound_ms:.4f} ms by "
+                  f"{bound_by} (int8 tensor core, {INT8_OPS_PER_S:g} op/s)")
     err = 0
     times = {}
     for m, n, w in K1_SHAPES:
@@ -199,12 +269,15 @@ def phase_kernel() -> dict:
         err = max(err, _max_err(got, want))
         check(torch.equal(got, want), f"K1 != plain at {name}")
         times[name] = (_time_ms(lambda: k1(a, b), 20),
-                       _time_ms(lambda: k1_plain(a, b), 5))
+                       _time_ms(lambda: k1_plain(a, b), 5),
+                       _library_counts(a, b, want))
         log("kernel", f"K1 {name}: bit-exact; kernel {times[name][0]:.4f} "
-                      f"ms/tile, plain {times[name][1]:.4f} ms/tile")
-    ms, plain_ms = times["1024x1024xW4096"]
+                      f"ms/tile, plain {times[name][1]:.4f} ms/tile, "
+                      f"_int_mm {_fmt_ms(times[name][2])} ms/tile")
+    ms, plain_ms, library_ms = times[summary]
     out["packed_intersect_counts"] = {
-        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
     err = 0
     times = {}
@@ -218,14 +291,96 @@ def phase_kernel() -> dict:
         check(torch.equal(other, want), f"K1 != K2's plain at {name}")
         times[name] = (_time_ms(lambda: k2(a, b), 20),
                        _time_ms(lambda: k2_plain(a, b), 2),
+                       _library_counts(a, b, want),
                        _time_ms(lambda: k1(a, b), 20))
         log("kernel", f"K2 {name}: bit-exact; kernel {times[name][0]:.4f} "
                       f"ms/tile, plain {times[name][1]:.4f} ms/tile, "
-                      f"K1 {times[name][2]:.4f} ms/tile")
-    ms, plain_ms, _ = times["1024x1024xW4096"]
+                      f"_int_mm {_fmt_ms(times[name][2])} ms/tile, "
+                      f"K1 {times[name][3]:.4f} ms/tile")
+    ms, plain_ms, library_ms, _ = times[summary]
     out["popcount_tile_counts"] = {
-        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    log("kernel", "_int_mm times exclude unpacking the rows to int8 0/1")
     return out
+
+
+def _fmt_ms(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.4f}"
+
+
+def phase_gather() -> dict:
+    """The gather probe's entry point with K3's and K4's counts set to 0
+    just before and read just after; then each setting of both kernels
+    against the plain version on the same inputs, bit-exact. Returns
+    both kernels' JSON fields, at the larger-than-L2 table and
+    GATHER_SUMMARY_UNROLL."""
+    import torch
+
+    from galah_tpu_torch.ops import gather_probe as gp
+    from galah_tpu_torch.tools import gather_probe as probe
+
+    dev = torch.device("cuda", 0)
+    wrappers = {"gather_xor": gp.gather_xor,
+                "gather_xor_chains": gp.gather_xor_chains}
+    for fn in wrappers.values():
+        fn.launches = 0
+    results = probe.run_probe(probe.SHAPES, seed=GATHER_SEED,
+                              iters=GATHER_ITERS, device=dev)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    log("gather", f"probe launches {json.dumps(launches)}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was never launched by the probe")
+    for r in results:
+        unroll = "" if r["unroll"] is None else f" unroll={r['unroll']}"
+        log("gather", f"{r['shape']} ({r['rows']} x 8 table, {r['indices']} "
+                      f"indices) {r['kernel']}{unroll}: {r['ms']:.4f} ms, "
+                      f"{r['indices_per_s'] / 1e6:.1f}M idx/s")
+
+    errs = {k: 0 for k in wrappers}
+    bounds = {}
+    for shape in probe.SHAPES:
+        idx, table = probe.make_inputs(shape, GATHER_SEED, dev)
+        want = gp.gather_xor_reference(idx, table)
+        for name, _, unrolls in probe.KERNELS:
+            for unroll in unrolls:
+                got = wrappers[name](idx, table, unroll)
+                torch.cuda.synchronize()
+                errs[name] = max(errs[name], _max_err(
+                    got.to(torch.int64) & 0xFFFFFFFF,
+                    want.to(torch.int64) & 0xFFFFFFFF))
+                check(torch.equal(got, want),
+                      f"{name} unroll={unroll} != plain at {shape.name}")
+        # Bytes this data needs: every index read once, each distinct
+        # row's 32 bytes once, the 32-byte result written once; 8 XORs
+        # per index.
+        distinct = int(torch.unique(idx).numel())
+        bounds[shape.name] = _bound_ms(
+            idx.numel() * 4 + distinct * 32 + 32, idx.numel() * 8,
+            FP32_OPS_PER_S)
+        log("gather", f"{shape.name}: every unroll of both kernels bit-exact; "
+                      f"{distinct} distinct rows, bound "
+                      f"{bounds[shape.name][0]:.5f} ms by "
+                      f"{bounds[shape.name][1]}")
+        del idx, table
+
+    def at(kernel, unroll=None):
+        return next(r["ms"] for r in results
+                    if r["shape"] == probe.LARGE.name
+                    and r["kernel"] == kernel and r["unroll"] == unroll)
+
+    bound_ms, bound_by = bounds[probe.LARGE.name]
+    return {
+        name: {
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": at(name, GATHER_SUMMARY_UNROLL), "plain_ms": at("plain"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": at("index_select"),
+            "shape": f"{probe.LARGE.rows} x 8 table, {probe.LARGE.indices} "
+                     f"indices, unroll {GATHER_SUMMARY_UNROLL}",
+        }
+        for name in wrappers
+    }
 
 
 @contextlib.contextmanager
@@ -390,8 +545,8 @@ def _log_run(phase: str, wall: float, m: dict, launches: dict, rec) -> None:
 
 
 def make_main_corpus(work: str):
-    from galah_tpu import native_ext
-    from galah_tpu.utils.synth import make_families
+    from galah_tpu_torch import native_ext
+    from galah_tpu_torch.utils.synth import make_families
 
     nfam, nmem = MAIN_GENOMES
     corpus = os.path.join(work, "main")
@@ -402,6 +557,8 @@ def make_main_corpus(work: str):
     log("main", f"corpus {len(paths)} x {MAIN_LENGTH} bp made in "
                 f"{time.perf_counter() - t0:.1f} s; C++ sketcher loaded: "
                 f"{native_ext.available()}")
+    check(native_ext.available(),
+          "the C++ sketcher (native/libfastaio.so) did not load")
     return corpus, paths, fam_ids
 
 
@@ -528,7 +685,7 @@ def phase_scale() -> None:
 def phase_parity(work: str) -> None:
     import numpy as np
 
-    from galah_tpu.utils.synth import make_families
+    from galah_tpu_torch.utils.synth import make_families
 
     nfam, nmem = PARITY_GENOMES
     corpus = os.path.join(work, "parity")
@@ -588,6 +745,7 @@ def main() -> int:
     info = phase_device()
     phase_build()
     kernels = phase_kernel()
+    gather = phase_gather()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build",
                                      prefix="chip_smoke_") as work:
@@ -614,6 +772,20 @@ def main() -> int:
             "replaces": "galah_tpu/ops/popcount_screen.py:47",
             "launches": k2_launches,
             **kernels["popcount_tile_counts"],
+        },
+        {
+            "name": "gather_xor",
+            "route": "cuda",
+            "source": "galah_tpu_torch/csrc/gather_probe.cu",
+            "replaces": "benchmarks/pallas_gather_probe.py:58",
+            **gather["gather_xor"],
+        },
+        {
+            "name": "gather_xor_chains",
+            "route": "cuda",
+            "source": "galah_tpu_torch/csrc/gather_probe.cu",
+            "replaces": "benchmarks/pallas_gather_probe.py:85",
+            **gather["gather_xor_chains"],
         },
     ]}))
     print(info["nvidia_smi"])

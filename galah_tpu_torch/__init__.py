@@ -2,13 +2,16 @@
 
 Runs the `cluster` main path (host sketch -> packed all-vs-all screen ->
 fragment-containment verify -> greedy clustering) with torch tensors on
-one CUDA device, or on the CPU for tests. The screen's intersection
-counts go through a hand-written CUDA kernel (csrc/packed_popcount.cu);
-the verify programs are plain torch.
+one CUDA device, or on the CPU for tests. The screens' intersection
+counts go through hand-written CUDA kernels (csrc/packed_popcount.cu,
+csrc/popcount_screen.cu); the verify programs are plain torch.
+`python -m galah_tpu_torch.tools.gather_probe` measures the word-gather
+rate that sizes them (csrc/gather_probe.cu).
 
-The JAX package `galah_tpu` stays the reference: this package imports
-its host-only modules (sketching, clustering, quality, CLI helpers) and
-never imports JAX or any `galah_tpu` module that does.
+The JAX package `galah_tpu` stays the reference. This package imports
+nothing of it: its host layer (sketching, clustering, the sketch store,
+quality filtering, CLI helpers) is its own copy of the JAX package's
+host-only modules, at the same relative paths.
 """
 
 __version__ = "0.2.2"

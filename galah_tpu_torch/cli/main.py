@@ -11,7 +11,7 @@ from galah_tpu_torch import __version__
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from galah_tpu.cli.cluster_cmd import add_cluster_arguments
+    from galah_tpu_torch.cli.cluster_cmd import add_cluster_arguments
 
     parser = argparse.ArgumentParser(
         prog="galah-tpu-torch",

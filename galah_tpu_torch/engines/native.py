@@ -35,17 +35,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from galah_tpu import defaults
-from galah_tpu.cluster.cache import SortedPairDistanceCache
-from galah_tpu.engines.base import ClusterDistanceFinder, PreclusterDistanceFinder
-from galah_tpu.sketch.fracminhash import (
-    NativeSketch,
-    NativeSketchParams,
-    sketch_file_native,
-    small_genome_params,
+from galah_tpu_torch import defaults
+from galah_tpu_torch.cluster.cache import SortedPairDistanceCache
+from galah_tpu_torch.engines.base import (
+    ClusterDistanceFinder,
+    PreclusterDistanceFinder,
 )
-from galah_tpu.sketch.store import DiskSketchStore
-from galah_tpu.utils import metrics
 from galah_tpu_torch.ops.fragment_ani import FragmentAniConfig, FragmentAniEngine
 from galah_tpu_torch.ops.popcount_screen import screen_triangle_popcount
 from galah_tpu_torch.ops.prefilter import (
@@ -53,6 +48,14 @@ from galah_tpu_torch.ops.prefilter import (
     screen_rectangle_packed,
     screen_triangle_packed,
 )
+from galah_tpu_torch.sketch.fracminhash import (
+    NativeSketch,
+    NativeSketchParams,
+    sketch_file_native,
+    small_genome_params,
+)
+from galah_tpu_torch.sketch.store import DiskSketchStore
+from galah_tpu_torch.utils import metrics
 from galah_tpu_torch.utils.convert import pack_indicator
 
 logger = logging.getLogger(__name__)
@@ -452,8 +455,8 @@ class NativePreclusterer(PreclusterDistanceFinder):
 
     def _report_indel_load(self, cache, sketch_for) -> None:
         """Advisory: estimate the corpus's apparent indel load from a
-        sample of verified pairs (galah_tpu.ops.indel_estimate, host
-        numpy) and report it in the metrics and log, as the reference
+        sample of verified pairs (ops/indel_estimate.py, host numpy)
+        and report it in the metrics and log, as the reference
         does. GALAH_TPU_INDEL_ESTIMATE=0 disables."""
         if os.environ.get("GALAH_TPU_INDEL_ESTIMATE", "1") == "0":
             return
@@ -462,7 +465,7 @@ class NativePreclusterer(PreclusterDistanceFinder):
         try:
             from collections import Counter
 
-            from galah_tpu.ops.indel_estimate import estimate_indel_load
+            from galah_tpu_torch.ops.indel_estimate import estimate_indel_load
 
             keys = [p for p, _ in cache.items()]
             span = 128

@@ -137,4 +137,13 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    # The gather probe's entries take (idx, table, out, ns, wt, unroll,
+    # stream) and return a CUDA error code.
+    for fn in (lib.galah_gather_xor, lib.galah_gather_xor_chains):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     return lib

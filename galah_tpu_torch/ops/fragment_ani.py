@@ -25,10 +25,10 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from galah_tpu import defaults
-from galah_tpu.sketch.fracminhash import NativeSketch
-from galah_tpu.utils import metrics
+from galah_tpu_torch import defaults
 from galah_tpu_torch.ops.pair_table import PairTableConfig, PairTableVerifier
+from galah_tpu_torch.sketch.fracminhash import NativeSketch
+from galah_tpu_torch.utils import metrics
 from galah_tpu_torch.utils.convert import sketch_tensors, u32_to_i32
 
 # Buckets scattered per bitmap-pool fill step (bounds the int64 index

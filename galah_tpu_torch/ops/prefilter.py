@@ -35,8 +35,8 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from galah_tpu.utils import metrics
 from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
+from galah_tpu_torch.utils import metrics
 from galah_tpu_torch.utils.convert import words_to_torch
 
 DEFAULT_BLOCK = 1024

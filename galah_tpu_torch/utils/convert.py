@@ -8,12 +8,13 @@ kernels read the same memory as `const uint32_t*`.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from galah_tpu.sketch.fracminhash import NativeSketch
+from galah_tpu_torch.sketch.fracminhash import NativeSketch, NativeSketchParams
 
 
 def words_to_torch(words: np.ndarray) -> torch.Tensor:
@@ -32,7 +33,8 @@ def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
 def pack_indicator(buckets: np.ndarray, bits: int) -> np.ndarray:
     """Sorted distinct bucket indices -> (bits/32,) uint32 bitmap,
     word-major bit-minor (bucket b sets bit b % 32 of word b // 32).
-    Same layout as galah_tpu.ops.popcount_screen.pack_indicator."""
+    Same layout as the JAX package's ops/popcount_screen.py
+    pack_indicator."""
     words = np.zeros(bits // 32, dtype=np.uint32)
     np.bitwise_or.at(
         words, buckets >> 5, np.uint32(1) << (buckets & 31).astype(np.uint32)
@@ -57,4 +59,26 @@ def sketch_tensors(sk: NativeSketch, device: torch.device) -> SketchTensors:
         frag_offsets=torch.from_numpy(
             np.ascontiguousarray(sk.frag_offsets, dtype=np.int32)
         ).to(device),
+    )
+
+
+def native_sketch_from_fields(sk) -> NativeSketch:
+    """The port's NativeSketch holding the same state as `sk`, any
+    object with NativeSketch's fields (a sketch made by the JAX package,
+    say): its name, length and numpy arrays, and its params read field
+    by field into the port's NativeSketchParams."""
+    params = None
+    if sk.params is not None:
+        params = NativeSketchParams(**{
+            f.name: getattr(sk.params, f.name)
+            for f in dataclasses.fields(NativeSketchParams)
+        })
+    return NativeSketch(
+        name=sk.name,
+        total_len=int(sk.total_len),
+        prefilter_buckets=np.asarray(sk.prefilter_buckets),
+        frag_buckets=np.asarray(sk.frag_buckets),
+        frag_offsets=np.asarray(sk.frag_offsets),
+        member_buckets=np.asarray(sk.member_buckets),
+        params=params,
     )

@@ -158,26 +158,54 @@ def test_indicator_screen_is_refused(corpus, tmp_path, monkeypatch, capsys):
     assert "not yet supported by galah_tpu_torch" in capsys.readouterr().err
 
 
-def test_module_entry_point_never_imports_jax(corpus, tmp_path):
-    d, _, _ = corpus
+# The modes the port runs, as (extra flags, GALAH_TPU_SCREEN).
+PORT_MODES = {
+    "genome": ([], "packed"),
+    "low-memory": (["--low-memory"], "packed"),
+    "popcount": ([], "popcount"),
+    "reference": (None, "packed"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(PORT_MODES))
+def test_module_entry_point_never_imports_jax(corpus, tmp_path, mode):
+    """`python -m galah_tpu_torch cluster` in each mode the port runs,
+    in a fresh interpreter that first imports every module of the port:
+    neither JAX nor anything of the JAX package gets imported."""
+    d, paths, fams = corpus
+    flags, screen = PORT_MODES[mode]
     out = tmp_path / "sub.tsv"
-    argv = ["galah_tpu_torch"] + _cluster_argv(d, out)
+    if flags is None:  # reference mode: one reference per family
+        refs = [paths[fams.index(f)] for f in sorted(set(fams))]
+        (tmp_path / "genomes.txt").write_text(
+            "".join(p + "\n" for p in paths if p not in refs))
+        argv = ["galah_tpu_torch", "cluster", "--genome-fasta-list",
+                str(tmp_path / "genomes.txt"), "--reference-genomes", *refs,
+                "--ani", "95", "--output-cluster-definition", str(out), "-q"]
+    else:
+        argv = ["galah_tpu_torch"] + _cluster_argv(d, out) + flags
     code = (
-        "import runpy, sys\n"
+        "import importlib, pkgutil, runpy, sys\n"
+        "import galah_tpu_torch\n"
+        "for m in pkgutil.walk_packages(galah_tpu_torch.__path__, "
+        "'galah_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         f"sys.argv = {argv!r}\n"
         "try:\n"
         "    runpy.run_module('galah_tpu_torch', run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    rc = e.code\n"
-        "print('JAX_LOADED', 'jax' in sys.modules)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'galah_tpu'))\n"
+        "print('FOREIGN_MODULES', bad)\n"
         "sys.exit(rc)\n"
     )
-    env = dict(os.environ, GALAH_TPU_PLATFORM="cpu",
+    env = dict(os.environ, GALAH_TPU_PLATFORM="cpu", GALAH_TPU_SCREEN=screen,
                PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "JAX_LOADED False" in proc.stdout
+    assert "FOREIGN_MODULES []" in proc.stdout
     assert len(out.read_text().splitlines()) == 16
 
 

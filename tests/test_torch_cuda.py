@@ -3,8 +3,8 @@ their plain versions, and the screens and verify on the card against the
 same code on the CPU.
 
 Every test needs a card and skips without one (the `cuda_device`
-fixture decides at run time). This file imports neither JAX nor any
-JAX-importing module, so a GPU machine without JAX runs it with
+fixture decides at run time). This file imports neither JAX nor
+anything of the JAX package, so a GPU machine without JAX runs it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -76,6 +76,31 @@ def test_popcount_kernel_matches_plain_version(cuda_device, m, n, w):
     assert popcount_tile_counts.launches == before + 1
     assert torch.equal(got, popcount_tile_counts_reference(a, b))
     assert torch.equal(got, packed_intersect_counts(a, b))
+
+
+@pytest.mark.parametrize("rows,ns", [(1 << 17, 1 << 17), (1000, 1), (7, 4097),
+                                     (1 << 20, 333_333)])
+@pytest.mark.parametrize("kernel,unroll", [
+    ("gather_xor", 1), ("gather_xor", 4), ("gather_xor", 8),
+    ("gather_xor_chains", 8), ("gather_xor_chains", 16),
+    ("gather_xor_chains", 32),
+])
+def test_gather_kernels_match_plain_version(cuda_device, kernel, unroll, rows,
+                                            ns):
+    from galah_tpu_torch.ops import gather_probe as gp
+
+    fn = getattr(gp, kernel)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(rows + ns + unroll)
+    idx = torch.randint(0, rows, (ns,), generator=gen, dtype=torch.int32,
+                        device=cuda_device)
+    table = _random_words(gen, (rows, gp.ROW_WORDS), cuda_device)
+    before = fn.launches
+    got = fn(idx, table, unroll)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.device.type == "cuda" and got.shape == (1, gp.ROW_WORDS)
+    assert torch.equal(got, gp.gather_xor_reference(idx, table))
 
 
 def test_kernel_reads_row_slices_of_a_resident_matrix(cuda_device):
@@ -160,10 +185,13 @@ def test_rectangle_screen_on_card_matches_cpu(cuda_device, cache_blocks):
 
 
 def test_verify_on_card_matches_cpu(cuda_device, tmp_path):
-    from galah_tpu.sketch.fracminhash import NativeSketchParams, sketch_file_native
-    from galah_tpu.utils.synth import make_families
     from galah_tpu_torch.engines.native import _shrink_bits
     from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.sketch.fracminhash import (
+        NativeSketchParams,
+        sketch_file_native,
+    )
+    from galah_tpu_torch.utils.synth import make_families
 
     small, _ = make_families(str(tmp_path / "s"), 3, 3, genome_length=60_000,
                              seed=3)

@@ -16,11 +16,12 @@ import torch
 
 from galah_tpu.ops import fragment_ani as jax_fa
 from galah_tpu.sketch.fracminhash import NativeSketchParams, sketch_file_native
-from galah_tpu.utils import metrics
+from galah_tpu.utils import metrics as jax_metrics
 from galah_tpu.utils.synth import make_families
 from galah_tpu_torch.engines.native import _shrink_bits
 from galah_tpu_torch.ops import fragment_ani as fa
-from galah_tpu_torch.utils.convert import words_to_torch
+from galah_tpu_torch.utils import metrics
+from galah_tpu_torch.utils.convert import native_sketch_from_fields, words_to_torch
 
 CPU = torch.device("cpu")
 ANI_TOL = 1e-3
@@ -38,6 +39,12 @@ def corpus(tmp_path_factory):
     params = _shrink_bits(NativeSketchParams(), 100_000)
     sketches = {p: sketch_file_native(p, params) for p in small + large}
     return small, large, params, sketches
+
+
+@pytest.fixture(scope="module")
+def port_sketches(corpus):
+    """The JAX package's sketches as the port's NativeSketch."""
+    return {p: native_sketch_from_fields(s) for p, s in corpus[3].items()}
 
 
 def _engines(params, monkeypatch):
@@ -58,20 +65,23 @@ def _assert_close(got, want):
         assert g[1:] == w[1:], (key, g, w)
 
 
-def test_pair_table_matches_jax(corpus, monkeypatch):
+def test_pair_table_matches_jax(corpus, port_sketches, monkeypatch):
     small, _, params, sk = corpus
     pairs = [(a, b) for a in small for b in small if a != b][:150]
     jeng, peng = _engines(params, monkeypatch)
     want = jeng._pair_table().run(pairs, sk)
-    got = peng.pair_table.run(pairs, sk)
+    got = peng.pair_table.run(pairs, port_sketches)
     _assert_close(got, want)
     # within-family pairs sit near 98% ANI; cross-family near nothing
     assert max(v[0] for v in got.values()) > 95.0
     assert min(v[1] for v in got.values()) < 0.1
 
 
-def test_pair_table_batching_does_not_change_results(corpus, monkeypatch):
-    small, _, params, sk = corpus
+def test_pair_table_batching_does_not_change_results(
+    corpus, port_sketches, monkeypatch
+):
+    small, _, params, _ = corpus
+    sk = port_sketches
     pairs = [(a, b) for a in small[:8] for b in small[:8] if a != b]
     _, peng = _engines(params, monkeypatch)
     whole = peng.pair_table.run(pairs, sk)
@@ -82,10 +92,11 @@ def test_pair_table_batching_does_not_change_results(corpus, monkeypatch):
     assert peng.pair_table.run(pairs, sk) == whole
 
 
-def test_forward_kernel_matches_jax(corpus):
+def test_forward_kernel_matches_jax(corpus, port_sketches):
     small, large, params, sk = corpus
     q = sk[large[0]]
     refs = [sk[p] for p in large[1:] + small[:5]]
+    pq = port_sketches[large[0]]
     bm = np.stack([s.member_bitmap_words() for s in refs])
     pc = np.array([s.member_popcount for s in refs], np.float32)
     n, f = len(q.frag_buckets), q.n_fragments
@@ -104,8 +115,8 @@ def test_forward_kernel_matches_jax(corpus):
     )
     got_ani, got_af = fa._forward_kernel(
         words_to_torch(bm), torch.arange(len(refs)), torch.from_numpy(pc),
-        torch.from_numpy(np.asarray(q.frag_buckets, np.int32)),
-        torch.from_numpy(np.asarray(q.frag_offsets, np.int32)), **kw,
+        torch.from_numpy(np.asarray(pq.frag_buckets, np.int32)),
+        torch.from_numpy(np.asarray(pq.frag_offsets, np.int32)), **kw,
     )
     np.testing.assert_allclose(got_ani.numpy(), np.asarray(want_ani),
                                rtol=0, atol=ANI_TOL)
@@ -113,27 +124,33 @@ def test_forward_kernel_matches_jax(corpus):
     assert got_ani.numpy()[:2].min() > 95.0  # same-family refs
 
 
-def test_one_to_many_matches_jax(corpus, monkeypatch):
+def test_one_to_many_matches_jax(corpus, port_sketches, monkeypatch):
     small, large, params, sk = corpus
     refs = large[1:] + small[:6]
     jeng, peng = _engines(params, monkeypatch)
-    args = (sk[large[0]], large[0], [sk[p] for p in refs], refs)
-    want = jeng.one_to_many(*args)
-    got = peng.one_to_many(*args)
+    want = jeng.one_to_many(sk[large[0]], large[0], [sk[p] for p in refs],
+                            refs)
+    psk = port_sketches
+    got = peng.one_to_many(psk[large[0]], large[0], [psk[p] for p in refs],
+                           refs)
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=ANI_TOL)
     np.testing.assert_array_equal(got[1], want[1])
 
 
-def _bidirectional(eng, table, pairs, sk):
+def _bidirectional(eng, table, pairs, sk, registry):
+    """Results and (pair-table, grouped) directed-pair counts, read from
+    `registry`: the metrics module of the package that `eng` is from."""
     table.cfg = dataclasses.replace(table.cfg, max_flat_hashes=SMALL_FLAT)
-    metrics.reset()
+    registry.reset()
     out = eng.bidirectional(pairs, sk)
-    c = metrics.current().counters
+    c = registry.current().counters
     return out, (c.get("verify_directed_pairtable", 0),
                  c.get("verify_directed_grouped", 0))
 
 
-def test_bidirectional_matches_jax_with_routing(corpus, monkeypatch):
+def test_bidirectional_matches_jax_with_routing(
+    corpus, port_sketches, monkeypatch
+):
     small, large, params, sk = corpus
     units = small[:8] + large
     pairs = [(a, b) for i, a in enumerate(units) for b in units[i + 1:]]
@@ -141,8 +158,10 @@ def test_bidirectional_matches_jax_with_routing(corpus, monkeypatch):
     assert max(len(sk[p].frag_buckets) for p in small) <= thresh
     assert min(len(sk[p].frag_buckets) for p in large) > thresh
     jeng, peng = _engines(params, monkeypatch)
-    want, want_routes = _bidirectional(jeng, jeng._pair_table(), pairs, sk)
-    got, got_routes = _bidirectional(peng, peng.pair_table, pairs, sk)
+    want, want_routes = _bidirectional(jeng, jeng._pair_table(), pairs, sk,
+                                       jax_metrics)
+    got, got_routes = _bidirectional(peng, peng.pair_table, pairs,
+                                     port_sketches, metrics)
     assert got_routes == want_routes
     n_small = 8 * 7 // 2
     assert got_routes == (2 * n_small, 2 * (len(pairs) - n_small))
@@ -159,10 +178,11 @@ def test_low_memory_engine_matches_default(corpus, monkeypatch):
     """Low-memory mode: sketches round-trip through the disk store, the
     screen streams, and verify runs in batches of three genomes. The
     distance cache must equal the default mode's."""
-    from galah_tpu.sketch.store import DiskSketchStore
     from galah_tpu_torch.engines import native
+    from galah_tpu_torch.sketch.store import DiskSketchStore
 
-    small, large, params, _ = corpus
+    small, large, _, _ = corpus
+    params = _shrink_bits(native.NativeSketchParams(), 100_000)
     monkeypatch.setattr(native, "LOW_MEMORY_VERIFY_KEYS", 3)
     batches = []
     run = fa.FragmentAniEngine.bidirectional
