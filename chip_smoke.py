@@ -11,12 +11,13 @@ exits non-zero):
 2. build: compile galah_tpu_torch/csrc/*.cu with nvcc for sm_90a;
 3. kernel: each hand-written kernel against its plain torch version on
    the card, bit-exact, at the shapes its screen gives it, with CUDA-event
-   times: the packed-popcount kernel (K1) at the packed screen's tiles,
-   the popcount-screen kernel (K2) at the popcount screen's tiles beside
-   its plain version and K1 at the same shapes; beside both, the library
-   call that computes the same counts, torch._int_mm on the rows unpacked
-   to int8 0/1 (unpacked outside the timed window), where its shape rules
-   allow it;
+   times: the packed-popcount kernel (K1, unpack + s8 wgmma) at the packed
+   screen's tiles, the popcount-screen kernel (K2, b1 AND-popcount mma) at the
+   popcount screen's tiles beside its plain version and K1 at the same
+   shapes; beside both, the library call that computes the same counts,
+   torch._int_mm on the rows unpacked to int8 0/1 (unpacked outside the
+   timed window; a column count that is not a multiple of 8 is padded
+   with zero rows and cut back), and the previous design's time;
    gather: the gather probe's entry point (galah_tpu_torch.tools.
    gather_probe.run_probe) at the reference probe's shape (2^17 indices
    into a 4 MiB table) and at a 256 MiB table, K3 at unroll 1, 4 and 8
@@ -89,6 +90,18 @@ K2_SHAPES = ((1024, 1024, 4096), (2048, 2048, 4096), (2048, 2048, 8192),
 # The shape whose times go into the kernels' JSON line, and for the
 # gather kernels the unroll (the one both run).
 K12_SUMMARY_SHAPE = (1024, 1024, 4096)
+# ms of the previous design of each count kernel (the integer-ALU __popc
+# kernels), NVIDIA H100 80GB HBM3 at 700 W, from this script's kernel
+# phase before the tensor-core redesign; printed beside the new times.
+PREVIOUS_MS = {
+    ("K1", (1024, 1024, 8192)): 2.4669,
+    ("K1", (1024, 1024, 4096)): 1.2169,
+    ("K1", REFERENCE_TILE): 0.6403,
+    ("K1", (1000, 777, 1000)): 0.2996,
+    ("K2", (1024, 1024, 4096)): 1.1995,
+    ("K2", (2048, 2048, 4096)): 4.7731,
+    ("K2", (2048, 2048, 8192)): 9.5979,
+}
 GATHER_SUMMARY_UNROLL = 8
 GATHER_SEED = 0
 GATHER_ITERS = 50
@@ -201,11 +214,19 @@ def _bound_ms(bytes_moved: float, ops: float, ops_per_s: float):
 
 
 def _counts_bound(m: int, n: int, w: int):
-    """Intersection counts of (m, w) and (n, w) words as an int8 0/1
-    product on the tensor cores: 2 m n 32w operations; bytes: both
-    operands read once, the int32 counts written once."""
-    return _bound_ms(4 * (m * w + n * w + m * n), 2 * m * n * 32 * w,
-                     INT8_OPS_PER_S)
+    """Bound of the intersection counts of (m, w) and (n, w) words, K1's
+    and K2's function: both operands read once, the int32 counts written
+    once. It has no operations term: the card computes the function as
+    single-bit AND-popcount tensor-core products (K2), whose peak NVIDIA
+    does not publish, faster than the int8 term below allows."""
+    return _bound_ms(4 * (m * w + n * w + m * n), 0, INT8_OPS_PER_S)
+
+
+def _int8_ceiling_ms(m: int, n: int, w: int) -> float:
+    """ms of the counts as an int8 0/1 product (2 m n 32w operations) at
+    the int8 tensor-core peak: the s8 route's ceiling (K1's), not a bound
+    on the function."""
+    return 2 * m * n * 32 * w / INT8_OPS_PER_S * 1e3
 
 
 def _unpack_int8(x):
@@ -221,19 +242,33 @@ def _library_counts(a, b, want):
     """ms of torch._int_mm on the rows unpacked to int8 0/1, the one
     library call that gives the same counts (exact: every count is below
     2^31), after checking it does; None where _int_mm refuses the shape
-    (it wants n and the bit width in multiples of 8). The unpack is
-    outside the timed window."""
+    (it wants more than 16 rows). It wants n in multiples of 8: other
+    column counts are padded with zero rows, which count 0, and cut back
+    to n before the check. The unpack and padding are outside the timed
+    window."""
     import torch
 
-    if a.shape[0] <= 16 or b.shape[0] % 8 or (32 * a.shape[1]) % 8:
+    if a.shape[0] <= 16:
         return None
-    a8, b8t = _unpack_int8(a), _unpack_int8(b).t()
-    got = torch._int_mm(a8, b8t)
+    n = b.shape[0]
+    b8 = _unpack_int8(b)
+    if n % 8:
+        b8 = torch.cat([b8, b8.new_zeros((8 - n % 8, b8.shape[1]))])
+    a8, b8t = _unpack_int8(a), b8.t()
+    got = torch._int_mm(a8, b8t)[:, :n]
     torch.cuda.synchronize()
     check(torch.equal(got, want), "torch._int_mm counts differ")
     ms = _time_ms(lambda: torch._int_mm(a8, b8t), 20)
-    del a8, b8t
+    del a8, b8, b8t
     return ms
+
+
+def _plan_text(module, m: int, n: int, w: int) -> str:
+    from galah_tpu_torch.ops.packed_matmul import sm_count
+
+    plan = module._launch_plan(m, n, w, sm_count(0))
+    gx, gy, gz = plan.grid
+    return f"grid {gx}x{gy}x{gz} = {gx * gy * gz} blocks"
 
 
 def phase_kernel() -> dict:
@@ -242,6 +277,7 @@ def phase_kernel() -> dict:
     bound there."""
     import torch
 
+    from galah_tpu_torch.ops import packed_matmul, popcount_screen
     from galah_tpu_torch.ops.packed_matmul import (
         packed_intersect_counts as k1,
         packed_intersect_counts_reference as k1_plain,
@@ -257,8 +293,10 @@ def phase_kernel() -> dict:
     out = {}
     summary = "{}x{}xW{}".format(*K12_SUMMARY_SHAPE)
     bound_ms, bound_by = _counts_bound(*K12_SUMMARY_SHAPE)
-    log("kernel", f"counts bound at {summary}: {bound_ms:.4f} ms by "
-                  f"{bound_by} (int8 tensor core, {INT8_OPS_PER_S:g} op/s)")
+    log("kernel", f"counts bound at {summary} (K1 and K2): {bound_ms:.5f} "
+                  f"ms by {bound_by}; not a bound, the s8 route's int8 "
+                  f"ceiling: {_int8_ceiling_ms(*K12_SUMMARY_SHAPE):.4f} ms "
+                  f"at {INT8_OPS_PER_S:g} op/s")
     err = 0
     times = {}
     for m, n, w in K1_SHAPES:
@@ -272,8 +310,13 @@ def phase_kernel() -> dict:
                        _time_ms(lambda: k1_plain(a, b), 5),
                        _library_counts(a, b, want))
         log("kernel", f"K1 {name}: bit-exact; kernel {times[name][0]:.4f} "
-                      f"ms/tile, plain {times[name][1]:.4f} ms/tile, "
-                      f"_int_mm {_fmt_ms(times[name][2])} ms/tile")
+                      f"ms/tile (previous design "
+                      f"{_fmt_ms(PREVIOUS_MS.get(('K1', (m, n, w))))}), "
+                      f"plain {times[name][1]:.4f} ms/tile, "
+                      f"_int_mm {_fmt_ms(times[name][2])} ms/tile; bound "
+                      f"{_counts_bound(m, n, w)[0]:.5f} ms (bytes; int8 "
+                      f"ceiling {_int8_ceiling_ms(m, n, w):.4f}); "
+                      f"{_plan_text(packed_matmul, m, n, w)}")
     ms, plain_ms, library_ms = times[summary]
     out["packed_intersect_counts"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -294,9 +337,14 @@ def phase_kernel() -> dict:
                        _library_counts(a, b, want),
                        _time_ms(lambda: k1(a, b), 20))
         log("kernel", f"K2 {name}: bit-exact; kernel {times[name][0]:.4f} "
-                      f"ms/tile, plain {times[name][1]:.4f} ms/tile, "
+                      f"ms/tile (previous design "
+                      f"{_fmt_ms(PREVIOUS_MS.get(('K2', (m, n, w))))}), "
+                      f"plain {times[name][1]:.4f} ms/tile, "
                       f"_int_mm {_fmt_ms(times[name][2])} ms/tile, "
-                      f"K1 {times[name][3]:.4f} ms/tile")
+                      f"K1 {times[name][3]:.4f} ms/tile; bound "
+                      f"{_counts_bound(m, n, w)[0]:.5f} ms (bytes; int8 "
+                      f"ceiling {_int8_ceiling_ms(m, n, w):.4f}); "
+                      f"{_plan_text(popcount_screen, m, n, w)}")
     ms, plain_ms, library_ms, _ = times[summary]
     out["popcount_tile_counts"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

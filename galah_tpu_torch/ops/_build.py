@@ -5,14 +5,17 @@ first use, into one shared library with a plain C interface: one nvcc
 per source, all started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o
+         -Xcompiler -fPIC -Xptxas -v -I csrc -c csrc/<name>.cu -o <name>.o
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \
          -o libgalah_kernels.so *.o
 
 The library lands in build/galah_tpu_torch/<sha256>/ at the root of the
-checkout, keyed by the sources and flags, and is loaded with ctypes.
+checkout, keyed by every file under csrc/ (sources and the headers they
+include) and the full compile flag list, and is loaded with ctypes.
 A missing nvcc or a failed build raises with the compiler's output:
-there is no fallback.
+there is no fallback. `build_library(defines=...)` builds the same
+sources with extra preprocessor defines into a directory of its own, for
+tools that need code the kernel library leaves out.
 """
 
 from __future__ import annotations
@@ -27,12 +30,15 @@ import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List
+from typing import List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "galah_tpu_torch"
 LIB_NAME = "libgalah_kernels.so"
+
+# (a, b, out, m, n, w, split_words) of the count kernels' C entries.
+COUNT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
@@ -56,12 +62,19 @@ def _sources() -> List[Path]:
     return srcs
 
 
-def _digest(srcs: List[Path]) -> str:
+def _compile_flags(defines: Sequence[str] = ()) -> List[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC_DIR)]
+
+
+def _digest(defines: Sequence[str] = ()) -> str:
+    """Key of the build: every file under csrc/ (a header change must
+    rebuild every source that may include it) and the compile and link
+    flags, include path included."""
     h = hashlib.sha256()
-    for p in srcs:
-        h.update(p.name.encode())
+    for p in sorted(q for q in CSRC_DIR.rglob("*") if q.is_file()):
+        h.update(str(p.relative_to(CSRC_DIR)).encode() + b"\0")
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update("\0".join(_compile_flags(defines) + ARCH_FLAGS).encode())
     return h.hexdigest()
 
 
@@ -78,10 +91,11 @@ def _find_nvcc() -> str:
     )
 
 
-def build_library() -> BuildResult:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+def build_library(defines: Sequence[str] = ()) -> BuildResult:
+    """Compile csrc/*.cu, with `-D` for each of `defines`, unless the
+    library for these files and flags exists."""
     srcs = _sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
+    out_dir = BUILD_ROOT / _digest(defines)
     lib = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib.exists():
@@ -93,7 +107,7 @@ def build_library() -> BuildResult:
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
         objs = [os.path.join(work, p.stem + ".o") for p in srcs]
         logs = _run_all([
-            [nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
+            [nvcc, *_compile_flags(defines), "-c", str(p), "-o", o]
             for p, o in zip(srcs, objs)
         ])
         # Link to a temporary name and rename, so a concurrent process
@@ -128,14 +142,10 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argtypes and restype declared."""
     lib = ctypes.CDLL(str(build_library().path))
-    # Both entries take (a, b, out, m, n, w, stream) and return a CUDA
-    # error code.
+    # Both count entries take (a, b, out, m, n, w, split_words, stream)
+    # and return a CUDA error code.
     for fn in (lib.galah_packed_popcount, lib.galah_popcount_screen):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = [*COUNT_ARGS, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     # The gather probe's entries take (idx, table, out, ns, wt, unroll,
     # stream) and return a CUDA error code.

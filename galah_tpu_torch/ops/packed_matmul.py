@@ -3,11 +3,20 @@
 Counterpart of galah_tpu/ops/packed_matmul.py: out[i, j] =
 popcount(a[i] AND b[j]) over (M, W) and (N, W) int32 tensors that hold
 uint32 words. On a CUDA tensor the count runs in the hand-written kernel
-csrc/packed_popcount.cu; on a CPU tensor in the plain torch version
-below. Counts are exact integers either way.
+csrc/packed_popcount.cu (unpack to int8 in shared memory + s8 wgmma); on
+a CPU tensor in the plain torch version below. Counts are exact integers
+either way.
+
+Both count kernels (this one and csrc/popcount_screen.cu) tile the
+output in 128 x 128 blocks and may split W across blocks so that a few
+tiles still fill the card; `plan_split_k` picks that split.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -45,27 +54,83 @@ def packed_intersect_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {a.device}")
     from galah_tpu_torch.ops._build import load_library
 
-    m, w = a.shape
-    n = b.shape[0]
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    if m == 0 or n == 0:
-        return out
-    lib = load_library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.galah_packed_popcount(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, w, stream
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"galah_packed_popcount launch failed: CUDA error {err} "
-            f"(m={m}, n={n}, w={w})"
-        )
+    out = launch_counts(load_library().galah_packed_popcount, _launch_plan,
+                        a, b)
     packed_intersect_counts.launches += 1
     return out
 
 
 packed_intersect_counts.launches = 0
+
+# The kernel's tile, K-panel and blocks per SM (csrc/packed_popcount.cu:
+# 81 KiB of shared memory and <= 128 registers a thread, two blocks an
+# SM).
+K1_TILE = 128
+K1_PANEL_WORDS = 4
+K1_BLOCKS_PER_SM = 2
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    grid: Tuple[int, int, int]     # (column tiles, row tiles, W splits)
+    splits: int
+    split_words: int               # W words per split, panel-aligned
+    ranges: Tuple[Tuple[int, int], ...]  # each split's [lo, hi) words
+
+
+def plan_split_k(m: int, n: int, w: int, sms: int, *, tile: int,
+                 panel_words: int, blocks_per_sm: int) -> LaunchPlan:
+    """Grid and W split of a count kernel with `tile`-square output
+    blocks and `panel_words`-word K-panels on a card of `sms` SMs.
+
+    W is cut into the most panel-aligned ranges whose blocks still fit
+    one wave (tiles x splits <= sms x blocks_per_sm), each range as even
+    as the panels allow and none empty."""
+    tiles = -(-m // tile) * -(-n // tile)
+    panels = -(-w // panel_words)
+    most = max(1, min(panels, sms * blocks_per_sm // max(tiles, 1)))
+    split_words = max(1, -(-panels // most)) * panel_words
+    splits = max(1, -(-w // split_words))
+    ranges = tuple((lo, min(w, lo + split_words))
+                   for lo in range(0, max(w, 1), split_words))
+    return LaunchPlan(grid=(-(-n // tile), -(-m // tile), splits),
+                      splits=splits, split_words=split_words, ranges=ranges)
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(m: int, n: int, w: int, sms: int) -> LaunchPlan:
+    return plan_split_k(m, n, w, sms, tile=K1_TILE,
+                        panel_words=K1_PANEL_WORDS,
+                        blocks_per_sm=K1_BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_counts(entry, plan_fn, a: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Launch a count kernel's C entry on (a, b) as plan_fn plans it; the
+    (M, N) int32 counts. The output is zeroed when W is split (the splits
+    add into it). Raises with the CUDA error if the launch is refused."""
+    m, w = a.shape
+    n = b.shape[0]
+    plan = plan_fn(m, n, w, sm_count(a.device))
+    alloc = torch.zeros if plan.splits > 1 else torch.empty
+    out = alloc((m, n), dtype=torch.int32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, w,
+                    plan.split_words, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{entry.__name__} launch failed: CUDA error {err} "
+            f"(m={m}, n={n}, w={w}, grid={plan.grid})"
+        )
+    return out
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:

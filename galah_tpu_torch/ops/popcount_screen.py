@@ -3,7 +3,8 @@
 An alternative all-vs-all screen over the same packed uint32 bitmap rows
 as ops/prefilter.py, selected with GALAH_TPU_SCREEN=popcount. Its
 intersection counts come from AND + population count, on a CUDA tensor
-in the hand-written kernel csrc/popcount_screen.cu and on a CPU tensor
+in the hand-written kernel csrc/popcount_screen.cu (the tensor cores'
+single-bit AND-popcount product) and on a CPU tensor
 in the plain torch version below (a SWAR popcount: a different
 formulation from packed_matmul's unpack + matmul, so the two plain
 versions check each other).
@@ -16,12 +17,18 @@ that float32 value in numpy. The diagonal tile keeps only i < j.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from galah_tpu_torch.ops.packed_matmul import _check
+from galah_tpu_torch.ops.packed_matmul import (
+    LaunchPlan,
+    _check,
+    launch_counts,
+    plan_split_k,
+)
 from galah_tpu_torch.ops.prefilter import (
     ScreenResult,
     _containment,
@@ -82,28 +89,27 @@ def popcount_tile_counts(
         raise ValueError(f"unsupported device {x_rows.device}")
     from galah_tpu_torch.ops._build import load_library
 
-    m, w = x_rows.shape
-    n = x_cols.shape[0]
-    out = torch.empty((m, n), dtype=torch.int32, device=x_rows.device)
-    if m == 0 or n == 0:
-        return out
-    lib = load_library()
-    with torch.cuda.device(x_rows.device):
-        stream = torch.cuda.current_stream(x_rows.device).cuda_stream
-        err = lib.galah_popcount_screen(
-            x_rows.data_ptr(), x_cols.data_ptr(), out.data_ptr(), m, n, w,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"galah_popcount_screen launch failed: CUDA error {err} "
-            f"(m={m}, n={n}, w={w})"
-        )
+    out = launch_counts(load_library().galah_popcount_screen, _launch_plan,
+                        x_rows, x_cols)
     popcount_tile_counts.launches += 1
     return out
 
 
 popcount_tile_counts.launches = 0
+
+# The kernel's tile, K-panel and blocks per SM (csrc/popcount_screen.cu:
+# 96 KiB of shared memory and <= 128 registers a thread, two blocks an
+# SM).
+K2_TILE = 128
+K2_PANEL_WORDS = 32
+K2_BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(m: int, n: int, w: int, sms: int) -> LaunchPlan:
+    return plan_split_k(m, n, w, sms, tile=K2_TILE,
+                        panel_words=K2_PANEL_WORDS,
+                        blocks_per_sm=K2_BLOCKS_PER_SM)
 
 
 def screen_triangle_popcount(

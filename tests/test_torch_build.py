@@ -100,3 +100,40 @@ def test_a_failed_compile_raises_with_its_output(fake_nvcc):
     assert not any(p.name == _build.LIB_NAME
                    for p in (_build.BUILD_ROOT).rglob("*"))
     assert not any("-shared" in c for c in calls())
+
+
+def test_digest_follows_headers_and_flags(fake_nvcc, monkeypatch):
+    """A changed header, a new header or changed flags give a new build
+    directory, so a library built from an old header is never reused."""
+    csrc, calls, _ = fake_nvcc
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    first = _build._digest()
+    assert _build._digest() == first
+    (csrc / "common.cuh").write_text("// v2\n")
+    second = _build._digest()
+    assert second != first
+    (csrc / "extra.h").write_text("// new\n")
+    third = _build._digest()
+    assert third not in (first, second)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
+    assert _build._digest() != third
+    res = _build.build_library()
+    assert res.path.parent.name == _build._digest()
+    compile_cmd = calls()[0]
+    assert compile_cmd[compile_cmd.index("-I") + 1] == str(csrc)
+
+
+def test_defines_build_a_library_of_their_own(fake_nvcc):
+    """Extra defines reach every compile and give their own build
+    directory, beside the kernel library's."""
+    csrc, calls, _ = fake_nvcc
+    (csrc / "k.cu").write_text("// k\n")
+    plain = _build.build_library()
+    timed = _build.build_library(("GALAH_TIMING_VARIANTS",))
+    assert not timed.cached and timed.path.parent != plain.path.parent
+    assert timed.path.parent.name == _build._digest(("GALAH_TIMING_VARIANTS",))
+    compiles = [c for c in calls() if "-c" in c]
+    assert "-DGALAH_TIMING_VARIANTS" not in compiles[0]
+    assert "-DGALAH_TIMING_VARIANTS" in compiles[1]
+    assert _build.build_library().cached

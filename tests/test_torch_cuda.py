@@ -216,3 +216,105 @@ def test_verify_on_card_matches_cpu(cuda_device, tmp_path):
     for key in cpu:
         assert abs(cpu[key][0] - gpu[key][0]) <= 1e-3, key
         assert cpu[key][1:] == gpu[key][1:], key
+
+
+COUNT_KERNELS = [
+    pytest.param("galah_tpu_torch.ops.packed_matmul",
+                 "packed_intersect_counts", 4, id="K1"),
+    pytest.param("galah_tpu_torch.ops.popcount_screen",
+                 "popcount_tile_counts", 32, id="K2"),
+]
+
+
+def _count_kernel(module):
+    import importlib
+
+    return importlib.import_module(module)
+
+
+@pytest.mark.parametrize("module,name,panel", COUNT_KERNELS)
+@pytest.mark.parametrize("m,n,w", [
+    (1024, 1024, 4097),   # one word past a panel and a split boundary
+    (300, 200, 1028),     # one panel past a split boundary, 16-byte rows
+    (896, 128, 4096),     # the reference-mode tile: split W across 224+ blocks
+    (1, 1000, 4096),      # m = 1
+    (129, 1, 33),         # n = 1, one word past K2's panel
+])
+def test_count_kernels_at_their_edges(cuda_device, module, name, panel, m,
+                                      n, w):
+    fn = getattr(_count_kernel(module), name)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m * 7 + n * 3 + w)
+    a = _random_words(gen, (m, w), cuda_device)
+    b = _random_words(gen, (n, w), cuda_device)
+    a[-1] = -1
+    b[0] = -1
+    before = fn.launches
+    got = fn(a, b)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, packed_intersect_counts_reference(a, b))
+
+
+@pytest.mark.parametrize("module,name,panel", COUNT_KERNELS)
+def test_count_kernels_all_ones_at_w8192(cuda_device, module, name, panel):
+    fn = getattr(_count_kernel(module), name)
+    a = torch.full((3, 8192), -1, dtype=torch.int32, device=cuda_device)
+    got = fn(a, a[:2].clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.full((3, 2), 32 * 8192, dtype=torch.int32,
+                                       device=cuda_device))
+
+
+@pytest.mark.parametrize("module,name,panel", COUNT_KERNELS)
+@pytest.mark.parametrize("rows", [slice(1, 200), slice(3, 50)])
+def test_count_kernels_read_unaligned_row_slices(cuda_device, module, name,
+                                                 panel, rows):
+    """Odd w: a row slice starts off a 16-byte boundary, so the kernel
+    stages its words one by one."""
+    fn = getattr(_count_kernel(module), name)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(rows.start)
+    x = _random_words(gen, (300, 97), cuda_device)
+    a, b = x[rows], x[250:]
+    assert a.data_ptr() % 16 != 0
+    got = fn(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, packed_intersect_counts_reference(a, b))
+
+
+def test_k1_timing_variants_launch_outside_the_kernel_library(cuda_device):
+    """The unpack-only and product-only halves exist only in the library
+    built with GALAH_TIMING_VARIANTS; there the full entry still counts
+    bit-exact."""
+    from galah_tpu_torch.ops._build import load_library
+    from galah_tpu_torch.tools import k1_split_timing
+
+    assert not hasattr(load_library(), "galah_packed_popcount_variant")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    r = k1_split_timing.split_times(k1_split_timing.load_variant_library(),
+                                    130, 9, 1000, 2, gen, cuda_device)
+    assert r["blocks"] > 1
+    assert all(r[k] > 0 for k in ("ms", "unpack_only_ms", "product_only_ms"))
+
+
+@pytest.mark.parametrize("module,name,panel", COUNT_KERNELS)
+def test_count_kernels_raise_on_a_refused_launch(cuda_device, monkeypatch,
+                                                 module, name, panel):
+    """A grid the card refuses (z past 65,535) raises; it never returns
+    the zeroed output as counts."""
+    from galah_tpu_torch.ops.packed_matmul import LaunchPlan
+
+    mod = _count_kernel(module)
+    fn = getattr(mod, name)
+    splits = 70_000
+    plan = LaunchPlan(grid=(1, 1, splits), splits=splits, split_words=panel,
+                      ranges=())
+    monkeypatch.setattr(mod, "_launch_plan", lambda *args: plan)
+    a = torch.full((1, splits * panel), -1, dtype=torch.int32,
+                   device=cuda_device)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
+        fn(a, a)
+    assert fn.launches == before

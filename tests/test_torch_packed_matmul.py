@@ -135,3 +135,81 @@ def test_pack_indicator_matches_jax_package():
     np.testing.assert_array_equal(
         pack_indicator(buckets, 4096), jax_pack_indicator(buckets, 4096)
     )
+
+
+# Ragged and main shapes of the count kernels (main tile, reference-mode
+# tile, popcount scale tile).
+PLAN_SHAPES = [(1, 1, 1), (1, 65, 33), (1000, 777, 1000), (896, 128, 4096),
+               (1024, 1024, 4096), (2048, 2048, 8192), (9, 300, 8192)]
+H100_SMS = 132
+
+
+def check_launch_plan(plan, m, n, w, sms, tile, panel_words, blocks_per_sm):
+    """The plan tiles the output once and partitions [0, w) into
+    panel-aligned split ranges, one per grid z; it fills the SMs
+    wherever the tiles and panels allow it, and a split never takes the
+    grid past one wave."""
+    gx, gy, gz = plan.grid
+    assert (gx - 1) * tile < n <= gx * tile
+    assert (gy - 1) * tile < m <= gy * tile
+    assert gz == plan.splits == len(plan.ranges) >= 1
+    assert plan.split_words % panel_words == 0
+    los = [lo for lo, _ in plan.ranges]
+    assert los == [z * plan.split_words for z in range(gz)]
+    assert plan.ranges[0][0] == 0 and plan.ranges[-1][1] == w
+    for (lo, hi), (nxt, _) in zip(plan.ranges, plan.ranges[1:]):
+        assert hi == nxt and lo < hi
+    panels = -(-w // panel_words)
+    if gx * gy * panels >= sms:
+        assert gx * gy * gz >= sms
+    if gz > 1:
+        assert gx * gy * gz <= sms * blocks_per_sm
+
+
+@pytest.mark.parametrize("m,n,w", PLAN_SHAPES)
+def test_launch_plan_covers_outputs_and_words(m, n, w):
+    from galah_tpu_torch.ops.packed_matmul import (
+        K1_BLOCKS_PER_SM, K1_PANEL_WORDS, K1_TILE, _launch_plan,
+    )
+
+    check_launch_plan(_launch_plan(m, n, w, H100_SMS), m, n, w, H100_SMS,
+                      K1_TILE, K1_PANEL_WORDS, K1_BLOCKS_PER_SM)
+
+
+@pytest.mark.parametrize("m,n,w,blocks", [
+    (1024, 1024, 4096, 256),   # main tile: 64 tiles x 4 splits
+    (896, 128, 4096, 259),     # reference tile: 7 tiles x 37 splits
+    (1000, 777, 1000, 224),    # 56 tiles x 4 splits
+    (2048, 2048, 4096, 256),   # 256 tiles fill one wave unsplit
+])
+def test_launch_plan_takes_the_most_splits_of_one_wave(m, n, w, blocks):
+    from galah_tpu_torch.ops.packed_matmul import _launch_plan
+
+    gx, gy, gz = _launch_plan(m, n, w, H100_SMS).grid
+    assert gx * gy * gz == blocks
+
+
+def test_k1_split_timing_needs_a_card(monkeypatch, capsys):
+    from galah_tpu_torch.tools import k1_split_timing
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert k1_split_timing.main([]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+
+
+def test_split_ranges_sum_to_the_whole_count():
+    """Adding the plain counts of each split range gives the unsplit
+    counts, as the kernel's atomics do."""
+    from galah_tpu_torch.ops.packed_matmul import _launch_plan
+
+    rng = np.random.default_rng(31)
+    a = words_to_torch(rng.integers(0, 1 << 32, size=(130, 1000),
+                                    dtype=np.uint64).astype(np.uint32))
+    b = words_to_torch(rng.integers(0, 1 << 32, size=(9, 1000),
+                                    dtype=np.uint64).astype(np.uint32))
+    plan = _launch_plan(130, 9, 1000, H100_SMS)
+    assert plan.splits > 1
+    total = sum(packed_intersect_counts_reference(
+        a[:, lo:hi].contiguous(), b[:, lo:hi].contiguous())
+        for lo, hi in plan.ranges)
+    assert torch.equal(total, packed_intersect_counts_reference(a, b))

@@ -115,3 +115,14 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert torch.equal(got, pc.popcount_tile_counts_reference(a, a))
     with pytest.raises(ValueError, match="width mismatch"):
         pc.popcount_tile_counts(a, a[:, :4].contiguous())
+
+
+@pytest.mark.parametrize("m,n,w", [
+    (1, 1, 1), (1, 33, 513), (1000, 777, 1000), (896, 128, 4096),
+    (1024, 1024, 4096), (2048, 2048, 4096), (2048, 2048, 8192),
+])
+def test_launch_plan_covers_outputs_and_words(m, n, w):
+    from test_torch_packed_matmul import H100_SMS, check_launch_plan
+
+    check_launch_plan(pc._launch_plan(m, n, w, H100_SMS), m, n, w, H100_SMS,
+                      pc.K2_TILE, pc.K2_PANEL_WORDS, pc.K2_BLOCKS_PER_SM)
