@@ -12,36 +12,51 @@ exits non-zero):
 3. kernel: each hand-written kernel against its plain torch version on
    the card, bit-exact, at the shapes its screen gives it, with CUDA-event
    times: the packed-popcount kernel (K1, unpack + s8 wgmma) at the packed
-   screen's tiles, the popcount-screen kernel (K2, b1 AND-popcount mma) at the
-   popcount screen's tiles beside its plain version and K1 at the same
-   shapes; beside both, the library call that computes the same counts,
-   torch._int_mm on the rows unpacked to int8 0/1 (unpacked outside the
-   timed window; a column count that is not a multiple of 8 is padded
-   with zero rows and cut back), and the previous design's time;
+   screen's tiles (the genome and contig corpora's), the popcount-screen
+   kernel (K2, b1 AND-popcount mma) at the popcount screen's tiles beside
+   its plain version and K1 at the same shapes; beside both, the library
+   call that computes the same counts, torch._int_mm on the rows unpacked
+   to int8 0/1 (unpacked outside the timed window; a column count that is
+   not a multiple of 8 is padded with zero rows and cut back), and the
+   previous design's time;
    gather: the gather probe's entry point (galah_tpu_torch.tools.
    gather_probe.run_probe) at the reference probe's shape (2^17 indices
    into a 4 MiB table) and at a 256 MiB table, K3 at unroll 1, 4 and 8
    and K4 at 8, 16 and 32, with index_select timed beside them; then each
    setting of both kernels against the plain version, bit-exact;
-4. main path: `galah_tpu_torch cluster` over 1024 synthetic 1 Mb genomes
+4. sketch kernel: K5 (hash-and-select, csrc/device_sketch.cu) against
+   sketch_batch_reference on the card, bit-exact (bitmaps and sorted
+   keys), on 8 genomes of the main corpus and on 2,000 contigs of the
+   contig corpus, with CUDA-event times, its bound and its grid;
+5. main path: `galah_tpu_torch cluster` over 1024 synthetic 1 Mb genomes
    (128 families of 8, 98% ANI within a family) must find exactly the
-   128 families, through K1, with screen and verify on the card;
-5. popcount path: the same run with GALAH_TPU_SCREEN=popcount must give
+   128 families, sketching on the card through K5 (every sketch equal to
+   the host C++ sketcher's, the screen matrix built from device-born
+   rows) and screening through K1, with screen and verify on the card;
+   it prints the sketch phase's split (read, upload, K5, sort/dedup, host
+   copies);
+6. popcount path: the same run with GALAH_TPU_SCREEN=popcount must give
    a byte-identical clusters.tsv through K2, with K1 never launched;
-6. reference mode: the first genome of each family as
+7. reference mode: the first genome of each family as
    --reference-genomes-list, the other 896 as --genome-fasta-list: 128
    clusters, one per family, each holding its reference; the rectangle
    runs through K1 on the card;
-7. low memory: --low-memory over the main corpus gives a byte-identical
-   clusters.tsv, through K1's streaming sweep;
-8. streaming at scale: 10,240 synthetic packed rows of 2^17 bits with
+8. low memory: --low-memory over the first 32 families (256 genomes)
+   gives a clusters.tsv byte-identical to a default run over the same
+   genomes, through K1's streaming sweep;
+9. contig path: `--cluster-contigs --small-contigs` over 100,000 synthetic
+   5 kb contigs in one FASTA (20,000 families of 5 at 98% ANI) must find
+   exactly the 20,000 families, every contig's device sketch equal to
+   the C++ sketcher's, through K5 and K1;
+10. streaming at scale: 10,240 synthetic packed rows of 2^17 bits with
    200 planted near-duplicate pairs; the resident and streaming packed
    sweeps (55 tiles of 1024^2) give identical pairs and ANI, and the
    popcount screen (15 tiles of 2048^2) the same pair set;
-9. parity: a 64-genome 200 kb corpus through the port on the CPU and on
-   the card, for the packed, popcount, reference and low-memory paths,
-   must give the same candidate pairs, ANI within 1e-3 percentage
-   points, equal AF and the same clusters.tsv.
+11. parity: a 64-genome 200 kb corpus through the port on the CPU (host
+   sketching) and on the card (device sketching), for the packed,
+   popcount, reference and low-memory paths, and a 2,000-contig corpus
+   in contig mode, must give the same candidate pairs, ANI within 1e-3
+   percentage points, equal AF and the same clusters.tsv.
 
 Each path's kernel launch counts are set to 0 just before its run and
 read just after. The C++ sketcher must load: the numpy fallback would
@@ -70,6 +85,20 @@ MAIN_SEED = 11
 PARITY_GENOMES = (8, 8)
 PARITY_LENGTH = 200_000
 PARITY_SEED = 5
+# The contig path: BASELINE config #3's 100k viral/plasmid contigs, as
+# benchmarks/contig_e2e.py makes them (families x members, 5 kb, 98% ANI).
+CONTIG_CORPUS = (20_000, 5)
+CONTIG_LENGTH = 5_000
+CONTIG_SEED = 13
+PARITY_CONTIGS = (400, 5)
+LOW_MEMORY_FAMILIES = 32       # --low-memory runs over these families only
+K5_GENOMES = 8                 # main-corpus genomes of K5's check
+K5_CONTIGS = 2_000             # contig-corpus contigs of K5's check
+# Integer operations K5 does per k-mer start, counted as 32-bit ones:
+# decode 1, both window updates 6, canonical min 1, validity 1,
+# splitmix64's 3 shifts and 3 xors on 64 bits (12) and its 2 64-bit
+# products (3 each, 6), two 64-bit threshold compares 4, bucket mask 1.
+K5_OPS_PER_POSITION = 32
 ANI_TOL = 1e-3                 # percentage points, GPU vs CPU verify ANI
 SCALE_ROWS = 10_240
 SCALE_BITS = 1 << 17
@@ -83,8 +112,12 @@ SCALE_PLANTED = 200
 # ragged shape.
 REFERENCE_TILE = (MAIN_GENOMES[0] * (MAIN_GENOMES[1] - 1), MAIN_GENOMES[0],
                   4096)
+# K1 also at the contig path's tiles (2^15 bits, W = 1024; the last row
+# block of 100,000 rows holds 672).
+CONTIG_TILES = ((1024, 1024, 1024),
+                (1024, CONTIG_CORPUS[0] * CONTIG_CORPUS[1] % 1024, 1024))
 K1_SHAPES = ((1024, 1024, 8192), (1024, 1024, 4096), REFERENCE_TILE,
-             (1000, 777, 1000))
+             *CONTIG_TILES, (1000, 777, 1000))
 K2_SHAPES = ((1024, 1024, 4096), (2048, 2048, 4096), (2048, 2048, 8192),
              (1000, 777, 1000))
 # The shape whose times go into the kernels' JSON line, and for the
@@ -431,18 +464,97 @@ def phase_gather() -> dict:
     }
 
 
+def _k5_bound(hb, params, n_keys: int):
+    """K5's bound on a planned batch: each input read once (sequence
+    bytes and the unit, run and bin arrays), both bitmaps and the keys
+    written once; K5_OPS_PER_POSITION integer operations per k-mer start
+    at the 32-bit ALU rate."""
+    g = len(hb.names)
+    read = (hb.seq.nbytes + hb.unit_off.nbytes + hb.run_off.nbytes
+            + hb.bounds.nbytes + hb.bin2frag.nbytes + hb.bin_off.nbytes)
+    written = g * (params.member_bits + params.prefilter_bits) // 8 + 8 * n_keys
+    return _bound_ms(read + written, K5_OPS_PER_POSITION * hb.starts,
+                     FP32_OPS_PER_S)
+
+
+def phase_sketch_kernel(genome_paths, contig_path: str) -> dict:
+    """K5 against its plain version on the card, bit-exact, on
+    K5_GENOMES genomes of the main corpus (at the main path's sketch
+    parameters) and K5_CONTIGS contigs of the contig corpus (at the
+    small-genome ones), with CUDA-event times; returns K5's JSON fields
+    (times and bound at the genome batch)."""
+    import torch
+
+    from galah_tpu_torch.engines.native import _shrink_bits
+    from galah_tpu_torch.io.fasta import decompressed_size_estimate
+    from galah_tpu_torch.ops import device_sketch as ds
+    from galah_tpu_torch.sketch.fracminhash import (
+        NativeSketchParams,
+        small_genome_params,
+    )
+
+    dev = torch.device("cuda", 0)
+    genome_params = _shrink_bits(
+        NativeSketchParams(),
+        max(decompressed_size_estimate(p) for p in genome_paths))
+    t0 = time.perf_counter()
+    contigs = ds._FastaSource(contig_path)
+    log("sketch-kernel", f"the C++ reader parsed the contig corpus "
+                         f"({len(contigs.lengths)} records, {contigs.nbytes} "
+                         f"bases) in {time.perf_counter() - t0:.2f} s")
+    genomes = [ds._FastaSource(p) for p in genome_paths]
+    cases = {
+        "genomes": (genome_params, [str(p) for p in genome_paths],
+                    [[(src, j) for j in range(len(src.lengths))]
+                     for src in genomes]),
+        "contigs": (small_genome_params(),
+                    [contigs.name(j) for j in range(K5_CONTIGS)],
+                    [[(contigs, j)] for j in range(K5_CONTIGS)]),
+    }
+    out = {}
+    for name, (params, names, pieces) in cases.items():
+        hb = ds._read_batch(names, pieces, params, time.perf_counter())
+        batch = ds.upload_batch(hb, params, dev)
+        member, pref, keys = ds.sketch_batch(batch)
+        pm, pp, pk = ds.sketch_batch_reference(batch)
+        torch.cuda.synchronize()
+        keys, pk = torch.sort(keys).values, torch.sort(pk).values
+        err = max(_max_err(member, pm), _max_err(pref, pp),
+                  _max_err(keys, pk) if keys.numel() == pk.numel() else -1)
+        check(torch.equal(member, pm) and torch.equal(pref, pp)
+              and torch.equal(keys, pk), f"K5 != plain on the {name} batch")
+        ms = _time_ms(lambda: ds.sketch_batch(batch), 10)
+        plain_ms = _time_ms(lambda: ds.sketch_batch_reference(batch), 2)
+        bound_ms, bound_by = _k5_bound(hb, params, int(keys.numel()))
+        blocks, threads = ds.k5_grid(batch)
+        log("sketch-kernel", f"K5 {name}: {len(names)} units, {hb.starts} "
+                             f"k-mer starts, {keys.numel()} keys: bit-exact; "
+                             f"kernel {ms:.4f} ms/batch (wrapper: zeroed "
+                             f"bitmaps, launch, key count read), plain "
+                             f"{plain_ms:.4f} ms; bound {bound_ms:.5f} ms by "
+                             f"{bound_by}; grid {blocks} x {threads} threads "
+                             f"({ds.RUN_LEN} starts a thread)")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None,
+                     "shape": f"{len(names)} {name}, {hb.starts} starts"}
+        del batch, member, pref, keys, pm, pp, pk
+    return out["genomes"]
+
+
 @contextlib.contextmanager
 def _recording():
     """Record the devices the screen and verify ran on, the screen's
     candidate pairs and the verify results of one run."""
     import galah_tpu_torch.engines.native as native
+    import galah_tpu_torch.ops.device_sketch as ds
     import galah_tpu_torch.ops.fragment_ani as fa
     import galah_tpu_torch.ops.pair_table as pt
     import galah_tpu_torch.ops.popcount_screen as pc
     import galah_tpu_torch.ops.prefilter as pf
 
     rec = {"screen_dev": set(), "verify_dev": set(), "tile_shapes": set(),
-           "pairs": None, "verified": {}}
+           "pairs": None, "verified": {}, "device_sketches": []}
     screens = ("screen_triangle_packed", "screen_triangle_popcount",
                "screen_rectangle_packed")
     orig = {
@@ -452,6 +564,7 @@ def _recording():
         (fa, "_forward_kernel"): fa._forward_kernel,
         (fa.FragmentAniEngine, "bidirectional"):
             fa.FragmentAniEngine.bidirectional,
+        (ds, "sketch_host_batch"): ds.sketch_host_batch,
         **{(native, s): getattr(native, s) for s in screens},
     }
 
@@ -476,6 +589,11 @@ def _recording():
             return rec["pairs"]
         return run
 
+    def sketch_host_batch(*a, **k):
+        sketches, dev = orig[(ds, "sketch_host_batch")](*a, **k)
+        rec["device_sketches"] += sketches
+        return sketches, dev
+
     def bidirectional(self, pairs, sketches_by_key):
         out = orig[(fa.FragmentAniEngine, "bidirectional")](
             self, pairs, sketches_by_key)
@@ -487,6 +605,7 @@ def _recording():
     pt._pair_table_kernel = pair_table_kernel
     fa._forward_kernel = forward_kernel
     fa.FragmentAniEngine.bidirectional = bidirectional
+    ds.sketch_host_batch = sketch_host_batch
     for s in screens:
         setattr(native, s, screen(orig[(native, s)]))
     try:
@@ -497,10 +616,12 @@ def _recording():
 
 
 def _launch_counters():
+    from galah_tpu_torch.ops.device_sketch import sketch_batch
     from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
     from galah_tpu_torch.ops.popcount_screen import popcount_tile_counts
 
-    return {"K1": packed_intersect_counts, "K2": popcount_tile_counts}
+    return {"K1": packed_intersect_counts, "K2": popcount_tile_counts,
+            "K5": sketch_batch}
 
 
 def _run_cli(inputs, out_dir: str, tag: str, platform: str,
@@ -580,10 +701,23 @@ def _log_run(phase: str, wall: float, m: dict, launches: dict, rec) -> None:
     counters = m["counters"]
     log(phase, "counters " + json.dumps({
         k: counters.get(k) for k in (
-            "genomes_sketched", "sketch_bases", "screen_tiles",
-            "screen_pairs_computed", "verify_directed_pairtable",
-            "verify_directed_grouped", "clusters")
+            "genomes_sketched", "contigs_sketched", "sketch_bases",
+            "screen_tiles", "screen_pairs_computed",
+            "screen_rows_device_born", "screen_rows_host_uploaded",
+            "verify_directed_pairtable", "verify_directed_grouped",
+            "clusters")
     }))
+    if "sketch_device_batches" in counters:
+        log(phase, "sketch split (s; lengths is the first pass over the "
+                   "files, read the second, on the read-ahead thread beside "
+                   "the device work; read_wait the device side's wait for "
+                   "it) " + json.dumps({
+                       k: counters.get(f"sketch_{k}_s") for k in (
+                           "lengths", "read", "read_wait", "upload", "kernel",
+                           "dedup", "copy")
+                   }) + f"; {int(counters['sketch_device_batches'])} "
+                   f"batches, {int(counters['sketch_upload_bytes'])} bytes "
+                   "uploaded")
     log(phase, f"kernel launches {json.dumps(launches)}; screen on "
                f"{sorted(rec['screen_dev'])}; verify on "
                f"{sorted(rec['verify_dev'])}; peak device memory "
@@ -610,9 +744,38 @@ def make_main_corpus(work: str):
     return corpus, paths, fam_ids
 
 
+def _check_device_sketches(rec, want_fn, units, phase: str) -> None:
+    """Every unit was sketched on the card, and each sketch equals the
+    C++ sketcher's: want_fn() gives those, in `units` order."""
+    import numpy as np
+
+    got = {s.name: s for s in rec["device_sketches"]}
+    check(sorted(got) == sorted(units),
+          f"{phase}: {len(got)} device sketches for {len(units)} units")
+    t0 = time.perf_counter()
+    want = want_fn()
+    host_s = time.perf_counter() - t0
+    fields = ("prefilter_buckets", "member_buckets", "frag_offsets",
+              "frag_buckets")
+    for w in want:
+        g = got[w.name]
+        check(g.total_len == w.total_len and all(
+            getattr(g, f).dtype == getattr(w, f).dtype
+            and np.array_equal(getattr(g, f), getattr(w, f)) for f in fields),
+            f"{phase}: the device sketch of {w.name} differs from the host's")
+    log(phase, f"every device sketch ({len(want)}) equals the C++ sketcher's "
+               f"(host sketcher, {min(8, os.cpu_count() or 1)} threads: "
+               f"{host_s:.2f} s)")
+
+
 def phase_main_path(work: str, corpus: str, paths, fam_ids):
-    """The packed path; returns (K1 launches, clusters.tsv bytes)."""
+    """The packed path, sketching on the card; returns (launches,
+    clusters.tsv bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
+
+    from galah_tpu_torch.sketch.fracminhash import sketch_file_native
 
     torch.cuda.reset_peak_memory_stats()
     wall, m, clusters, rec, launches = _run_cli(
@@ -624,8 +787,19 @@ def phase_main_path(work: str, corpus: str, paths, fam_ids):
           f"{n_clusters} clusters, want {MAIN_GENOMES[0]}")
     check(launches["K1"] >= tiles > 0,
           f"{launches['K1']} K1 launches for {tiles} tiles")
+    check(launches["K5"] > 0, "K5 was never launched on the main path")
+    check(m["counters"].get("screen_rows_device_born") == len(paths),
+          "the screen matrix was not built from device-born rows")
+    params = rec["device_sketches"][0].params
+
+    def host():
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+            return list(ex.map(lambda p: sketch_file_native(p, params),
+                               paths))
+
+    _check_device_sketches(rec, host, paths, "main")
     log("main", f"OK: {n_clusters} clusters, one per family")
-    return launches["K1"], clusters
+    return launches, clusters
 
 
 def phase_popcount_path(work: str, corpus: str, main_tsv: bytes) -> int:
@@ -660,14 +834,74 @@ def phase_reference(work: str, paths, fam_ids) -> None:
                      f"holding its reference ({len(refs)} references)")
 
 
-def phase_low_memory(work: str, corpus: str, main_tsv: bytes) -> None:
+def phase_low_memory(work: str, paths, fam_ids) -> None:
+    """--low-memory over the first LOW_MEMORY_FAMILIES families, against
+    a default run over the same genomes."""
+    keep = [i for i, f in enumerate(fam_ids) if f < LOW_MEMORY_FAMILIES]
+    sub_paths = [paths[i] for i in keep]
+    sub_fams = [fam_ids[i] for i in keep]
+    listing = os.path.join(work, "low_memory_genomes.txt")
+    with open(listing, "w") as f:
+        f.writelines(p + "\n" for p in sub_paths)
+    inputs = ["--genome-fasta-list", listing]
+    *_, default_tsv, _, _ = _run_cli(inputs, work, "low_memory_default", "gpu")
     wall, m, clusters, rec, launches = _run_cli(
-        ["-d", corpus, "-x", "fna"], work, "low_memory", "gpu",
-        flags=["--low-memory"])
+        inputs, work, "low_memory", "gpu", flags=["--low-memory"])
     _log_run("low-memory", wall, m, launches, rec)
-    check(launches["K1"] >= 1, f"low-memory path launches {launches}")
-    check(clusters == main_tsv, "--low-memory clusters.tsv differs")
-    log("low-memory", "OK: clusters.tsv identical to the default run")
+    check(launches["K1"] >= 1 and launches["K5"] >= 1,
+          f"low-memory path launches {launches}")
+    check(clusters == default_tsv, "--low-memory clusters.tsv differs")
+    n_clusters = _families_exact(clusters, sub_paths, sub_fams)
+    check(n_clusters == LOW_MEMORY_FAMILIES,
+          f"{n_clusters} clusters, want {LOW_MEMORY_FAMILIES}")
+    log("low-memory", f"OK: {len(sub_paths)} genomes, {n_clusters} clusters, "
+                      "clusters.tsv identical to the default run")
+
+
+def make_contig_corpus(work: str, shape, tag: str):
+    """One FASTA of `shape` (families, members) 5 kb contigs."""
+    from galah_tpu_torch.utils.synth import make_contig_corpus as make
+
+    path = os.path.join(work, f"{tag}.fna")
+    t0 = time.perf_counter()
+    names, fams = make(path, *shape, contig_length=CONTIG_LENGTH,
+                       within_ani=0.98, seed=CONTIG_SEED)
+    log(tag, f"corpus {len(names)} contigs x {CONTIG_LENGTH} bp made in "
+             f"{time.perf_counter() - t0:.1f} s")
+    return path, names, fams
+
+
+def _contig_inputs(path: str):
+    return ["-f", path, "--cluster-contigs", "--small-contigs"]
+
+
+def phase_contig_path(work: str, path: str, names, fams) -> dict:
+    """--cluster-contigs --small-contigs over the contig corpus; returns
+    its launches."""
+    import torch
+
+    from galah_tpu_torch.sketch.fracminhash import sketch_contigs_native
+
+    torch.cuda.reset_peak_memory_stats()
+    wall, m, clusters, rec, launches = _run_cli(
+        _contig_inputs(path), work, "contigs", "gpu")
+    _log_run("contigs", wall, m, launches, rec)
+    n_clusters = _families_exact(clusters, names, fams)
+    check(n_clusters == CONTIG_CORPUS[0],
+          f"{n_clusters} clusters, want {CONTIG_CORPUS[0]}")
+    tiles = m["counters"]["screen_tiles"]
+    check(launches["K1"] >= tiles > 0 and launches["K5"] > 0,
+          f"contig path launches {launches} for {tiles} tiles")
+    check(m["counters"].get("screen_rows_device_born") == len(names),
+          "the screen matrix was not built from device-born rows")
+    params = rec["device_sketches"][0].params
+    _check_device_sketches(
+        rec, lambda: sketch_contigs_native(
+            path, params, threads=min(8, os.cpu_count() or 1)),
+        names, "contigs")
+    log("contigs", f"OK: {n_clusters} clusters, one per family; {tiles} "
+                   f"tiles, K1 {launches['K1']}, K5 {launches['K5']}")
+    return launches
 
 
 def phase_scale() -> None:
@@ -747,11 +981,14 @@ def phase_parity(work: str) -> None:
         o = np.lexsort((res.pairs[:, 1], res.pairs[:, 0]))
         return res.pairs[o], res.ani_est[o]
 
+    contig_path, contig_names, contig_fams = make_contig_corpus(
+        work, PARITY_CONTIGS, "parity_contigs")
     for mode, inputs, screen, flags in (
         ("packed", dir_inputs, None, ()),
         ("popcount", dir_inputs, "popcount", ()),
         ("reference", ref_inputs, None, ()),
         ("low-memory", dir_inputs, None, ("--low-memory",)),
+        ("contigs", _contig_inputs(contig_path), None, ()),
     ):
         runs = {
             dev: _run_cli(inputs, work, f"parity_{mode}_{dev}", dev,
@@ -773,7 +1010,12 @@ def phase_parity(work: str) -> None:
         check(all(vc[k][1:] == vg[k][1:] for k in vc),
               f"{mode}: verify AF differs")
         check(tsv_c == tsv_g, f"{mode}: clusters.tsv differs CPU vs GPU")
-        n_clusters = _families_exact(tsv_g, paths, fam_ids)
+        check(not rec_c["device_sketches"] and rec_g["device_sketches"],
+              f"{mode}: the CPU run must sketch on the host, the GPU run "
+              "on the card")
+        n_clusters = (_families_exact(tsv_g, contig_names, contig_fams)
+                      if mode == "contigs"
+                      else _families_exact(tsv_g, paths, fam_ids))
         log("parity", f"{mode} OK: {len(pc)} candidate pairs, {len(vc)} "
                       f"verified, max |dANI| {dani:.3g}, AF equal, "
                       f"clusters.tsv identical ({n_clusters} clusters); "
@@ -798,10 +1040,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build",
                                      prefix="chip_smoke_") as work:
         corpus, paths, fam_ids = make_main_corpus(work)
-        k1_launches, main_tsv = phase_main_path(work, corpus, paths, fam_ids)
+        contig_path, contig_names, contig_fams = make_contig_corpus(
+            work, CONTIG_CORPUS, "contigs")
+        k5 = phase_sketch_kernel(paths[:K5_GENOMES], contig_path)
+        main_launches, main_tsv = phase_main_path(work, corpus, paths,
+                                                  fam_ids)
         k2_launches = phase_popcount_path(work, corpus, main_tsv)
         phase_reference(work, paths, fam_ids)
-        phase_low_memory(work, corpus, main_tsv)
+        phase_low_memory(work, paths, fam_ids)
+        contig_launches = phase_contig_path(work, contig_path, contig_names,
+                                            contig_fams)
         phase_scale()
         phase_parity(work)
     print(json.dumps({"kernels": [
@@ -810,7 +1058,8 @@ def main() -> int:
             "route": "cuda",
             "source": "galah_tpu_torch/csrc/packed_popcount.cu",
             "replaces": "galah_tpu/ops/packed_matmul.py:46",
-            "launches": k1_launches,
+            "launches": main_launches["K1"],
+            "launches_contig_path": contig_launches["K1"],
             **kernels["packed_intersect_counts"],
         },
         {
@@ -834,6 +1083,15 @@ def main() -> int:
             "source": "galah_tpu_torch/csrc/gather_probe.cu",
             "replaces": "benchmarks/pallas_gather_probe.py:85",
             **gather["gather_xor_chains"],
+        },
+        {
+            "name": "sketch_batch",
+            "route": "cuda",
+            "source": "galah_tpu_torch/csrc/device_sketch.cu",
+            "replaces": "galah_tpu/ops/device_sketch.py:603",
+            "launches": main_launches["K5"],
+            "launches_contig_path": contig_launches["K5"],
+            **k5,
         },
     ]}))
     print(info["nvidia_smi"])

@@ -5,7 +5,8 @@ Argument parsing, quality filtering and output writing are copies of
 the JAX package's helpers (add_cluster_arguments,
 determine_small_genomes_setting, filter_genomes_through_quality,
 setup_galah_outputs, write_galah_outputs), unchanged; only the engine
-differs. The native engine is the only method. Genome mode,
+differs. The native engine is the only method. Genome mode, contig mode
+(--cluster-contigs with --small-contigs or --large-contigs),
 reference-genome mode (--reference-genomes, --reference-genomes-list)
 and --low-memory run; other precluster/cluster methods and the modes
 the port has not reached raise "not yet supported".
@@ -18,6 +19,7 @@ import logging
 import os
 import shutil
 import sys
+import time
 from typing import List, Optional
 
 import torch
@@ -38,14 +40,13 @@ from galah_tpu_torch.engines.native import (
     NativePreclusterer,
     not_supported,
 )
-from galah_tpu_torch.io.fasta import decompressed_size_estimate
+from galah_tpu_torch.io.fasta import decompressed_size_estimate, read_fasta
 from galah_tpu_torch.utils import metrics
 
 logger = logging.getLogger(__name__)
 
 # (argument attribute, flag) of the modes the port refuses.
 _UNSUPPORTED_FLAGS = (
-    ("cluster_contigs", "--cluster-contigs"),
     ("sketch_directory", "--sketch-directory"),
     ("sweep_checkpoint", "--sweep-checkpoint"),
     ("output_distance_cache", "--output-distance-cache"),
@@ -185,6 +186,12 @@ def run_cluster(args: argparse.Namespace, device: torch.device) -> None:
     set_log_level(args)
     run_metrics = metrics.reset()
     genome_fasta_files = parse_list_of_genome_fasta_files(args)
+    cluster_contigs = args.cluster_contigs
+    contig_names = None
+    if cluster_contigs:
+        t0 = time.perf_counter()
+        contig_names = _contig_names(args, genome_fasta_files)
+        run_metrics.phases["contig_names"] = time.perf_counter() - t0
 
     # Reference genomes come first in the genome list, as in the
     # reference CLI.
@@ -192,14 +199,14 @@ def run_cluster(args: argparse.Namespace, device: torch.device) -> None:
     if reference_genomes is not None:
         logger.info("Clustering against %d reference genomes",
                     len(reference_genomes))
-        if args.cluster_contigs:
+        if cluster_contigs:
             print("Error: Reference genome clustering is not currently "
                   "supported with --cluster-contigs", file=sys.stderr)
             raise SystemExit(1)
         genome_fasta_files = list(reference_genomes) + genome_fasta_files
 
     galah = generate_galah_clusterer(
-        genome_fasta_files, args, device, reference_genomes
+        genome_fasta_files, args, device, reference_genomes, cluster_contigs
     )
 
     # Open outputs before heavy compute, as the reference does.
@@ -211,15 +218,54 @@ def run_cluster(args: argparse.Namespace, device: torch.device) -> None:
         galah["genome_fasta_paths"],
         galah["preclusterer"],
         galah["clusterer"],
+        cluster_contigs=cluster_contigs,
+        contig_names=contig_names,
         reference_genomes=galah["reference_genomes"],
     )
     logger.info("Found %d genome clusters", len(clusters))
 
-    write_galah_outputs(outputs, clusters, galah["genome_fasta_paths"], None)
+    write_galah_outputs(outputs, clusters, galah["genome_fasta_paths"],
+                        contig_names)
     if getattr(args, "metrics_json", None):
         run_metrics.count("clusters", len(clusters))
         run_metrics.dump_json(args.metrics_json)
     logger.info("Finished printing genome clusters")
+
+
+def _contig_names(args: argparse.Namespace, paths: List[str]) -> List[str]:
+    """Contig mode's checks, with the JAX CLI's messages and exit codes:
+    one of --small-contigs/--large-contigs, no representative FASTA
+    directory; then every contig's name (the header up to its first
+    tab), in file order, refusing a duplicate."""
+    if args.small_contigs and args.large_contigs:
+        print("Error: Cannot specify both --small-contigs and --large-contigs.",
+              file=sys.stderr)
+        raise SystemExit(1)
+    if not (args.small_contigs or args.large_contigs):
+        print("Error: When --cluster-contigs is used, either --small-contigs or "
+              "--large-contigs must be specified.", file=sys.stderr)
+        print("Use --small-contigs for contigs < 20kb, --large-contigs for "
+              "contigs >= 20kb.", file=sys.stderr)
+        raise SystemExit(1)
+    if (args.output_representative_fasta_directory
+            or args.output_representative_fasta_directory_copy):
+        raise SystemExit(
+            "Cannot specify --cluster-contigs with "
+            "--output-representative-fasta-directory "
+            "or --output-representative-fasta-directory-copy"
+        )
+    names: List[str] = []
+    seen = set()
+    for path in paths:
+        for rec in read_fasta(path):
+            cname = rec.contig_name
+            if cname in seen:
+                raise SystemExit(
+                    f"Duplicate contig name found in file '{path}': {cname}"
+                )
+            seen.add(cname)
+            names.append(cname)
+    return names
 
 
 def _reference_genomes(args: argparse.Namespace) -> Optional[List[str]]:
@@ -245,13 +291,16 @@ def generate_galah_clusterer(
     args: argparse.Namespace,
     device: torch.device,
     reference_genomes: Optional[List[str]] = None,
+    cluster_contigs: bool = False,
 ) -> dict:
     """Quality-order genomes and construct the native engine pair. Both
     methods are native, so the precluster pass runs at the final ANI.
-    Reference genomes that fail the quality filter are dropped."""
+    Reference genomes that fail the quality filter are dropped; in
+    contig mode the files keep their order."""
     _refuse_unsupported(args)
-    v2 = filter_genomes_through_quality(genome_fasta_paths, args, None, False)
-    small_genomes = determine_small_genomes_setting(args, False)
+    v2 = filter_genomes_through_quality(genome_fasta_paths, args, None,
+                                        cluster_contigs)
+    small_genomes = determine_small_genomes_setting(args, cluster_contigs)
     if reference_genomes is not None:
         passing = set(v2)
         reference_genomes = [r for r in reference_genomes if r in passing]

@@ -3,10 +3,14 @@
 
 One NativeContext owns the sketch parameters, the sketch store and the
 device-side fragment-ANI engine; the preclusterer and clusterer share it
-so every genome is sketched once per run. `distances()`:
+so every unit is sketched once per run. `distances()`:
 
-1. sketch every genome on the host (the C++ sketcher when it loads,
-   threaded);
+1. sketch every genome: on a CUDA device by device sketching
+   (ops/device_sketch.py, K5), on the CPU by the host sketcher (the C++
+   one when it loads, threaded); GALAH_TPU_DEVICE_SKETCH=1/0 forces
+   either. Device-born bitmaps are adopted into the verify bitmap pool
+   and, for the resident packed screen, into its matrix
+   (GALAH_TPU_RESIDENT=0 turns adoption off);
 2. screen all pairs at a conservative containment cutoff: the packed
    triangle screen (ops/prefilter.py), resident or streaming, or the
    popcount screen (ops/popcount_screen.py) under
@@ -14,13 +18,14 @@ so every genome is sketched once per run. `distances()`:
 3. verify the surviving pairs (ops/fragment_ani.py);
 4. return the pairs whose verified ANI and AF pass, as a sparse cache.
 
-`distances_with_references()` screens the (query, reference) rectangle
-instead (reference-genome mode). In low-memory mode sketches live in a
-disk store with a 64-sketch working set, the screens stream their blocks
-from the host, and verify runs in chunks of 64 genomes. The reference
-engine's other modes (contig clustering, the persistent sketch
-directory, the mid-sweep checkpoint, the u8 indicator screen) raise
-"not yet supported".
+`distances_contigs()` does the same with one unit per contig (contig
+mode), and `distances_with_references()` screens the (query, reference)
+rectangle instead (reference-genome mode). In low-memory mode sketches
+live in a disk store with a 64-sketch working set, the screens stream
+their blocks from the host, and verify runs in chunks of 64 genomes. The
+reference engine's other modes (the persistent sketch directory, the
+mid-sweep checkpoint, the u8 indicator screen) raise "not yet
+supported".
 """
 
 from __future__ import annotations
@@ -51,18 +56,22 @@ from galah_tpu_torch.ops.prefilter import (
 from galah_tpu_torch.sketch.fracminhash import (
     NativeSketch,
     NativeSketchParams,
+    sketch_contigs_native,
     sketch_file_native,
     small_genome_params,
 )
 from galah_tpu_torch.sketch.store import DiskSketchStore
 from galah_tpu_torch.utils import metrics
-from galah_tpu_torch.utils.convert import pack_indicator
+from galah_tpu_torch.utils.convert import pack_indicator, words_to_torch
 
 logger = logging.getLogger(__name__)
 
 # Distinct genomes per verify batch in low-memory mode: about the disk
 # sketch store's working set (max_resident=64), as in the reference.
 LOW_MEMORY_VERIFY_KEYS = 64
+# Device-born packed prefilter rows kept for the resident screen (the
+# reference's default budget); evicted rows come from the host sketches.
+PREF_CACHE_BYTES = 512 << 20
 
 
 def not_supported(what: str) -> ValueError:
@@ -118,6 +127,59 @@ class _LazyPackedRows:
 
     def __getitem__(self, i: int) -> np.ndarray:
         return pack_indicator(self._sketches[i].prefilter_buckets, self._bits)
+
+
+def _use_device_sketch(device: torch.device) -> bool:
+    """Whether sketching runs on the device: GALAH_TPU_DEVICE_SKETCH=1/0
+    forces it; otherwise on for a CUDA device, off on the CPU (the
+    reference's rule and variable)."""
+    env = os.environ.get("GALAH_TPU_DEVICE_SKETCH")
+    if env is not None:
+        return env == "1"
+    return device.type == "cuda"
+
+
+def _resident() -> bool:
+    """Whether device-born sketch rows are adopted (GALAH_TPU_RESIDENT=0
+    turns adoption off)."""
+    return os.environ.get("GALAH_TPU_RESIDENT", "1") != "0"
+
+
+class _PrefRowCache:
+    """Device-born packed prefilter rows, kept for the resident screen
+    matrix: references to device-sketch batches' (G, W) prefilter words,
+    keyed by unit name, FIFO-bounded by bytes. An evicted name is no
+    longer served; its row then comes from the host sketch."""
+
+    def __init__(self, budget_bytes: int) -> None:
+        from collections import deque
+
+        self._budget = budget_bytes
+        self._map: Dict[str, Tuple[torch.Tensor, int]] = {}
+        self._batches: "deque" = deque()
+        self._bytes = 0
+
+    def adopt(self, names: Sequence[str], pref_words: torch.Tensor) -> None:
+        nb = pref_words.numel() * 4
+        if nb > self._budget:
+            return
+        while self._bytes + nb > self._budget and self._batches:
+            old_names, old_arr, old_nb = self._batches.popleft()
+            for i, nm in enumerate(old_names):
+                hit = self._map.get(nm)
+                if hit is not None and hit[0] is old_arr and hit[1] == i:
+                    del self._map[nm]
+            self._bytes -= old_nb
+        self._batches.append((list(names), pref_words, nb))
+        self._bytes += nb
+        for i, nm in enumerate(names):
+            self._map[nm] = (pref_words, i)
+
+    def get(self, name: str) -> Optional[Tuple[torch.Tensor, int]]:
+        return self._map.get(name)
+
+    def __len__(self) -> int:
+        return len(self._map)
 
 
 def _screen_backend() -> str:
@@ -236,6 +298,8 @@ class NativeContext:
             )
         else:
             self._store = _DictStore()
+        self._contig_store: Dict[str, List[NativeSketch]] = {}
+        self._pref_cache = _PrefRowCache(PREF_CACHE_BYTES)
         self.frag_engine = FragmentAniEngine(
             FragmentAniConfig(
                 k=self.params.k,
@@ -297,6 +361,78 @@ class NativeContext:
             self._store.put(path, sk)
         return sk
 
+    def _adopt(self, names: Sequence[str], sketches: Sequence[NativeSketch],
+               dev: Dict[str, torch.Tensor]) -> None:
+        """Hand one device-sketch batch's bitmaps to the verify bitmap
+        pool and, unless in low-memory mode (whose screen streams from
+        the host), to the screen's prefilter row cache."""
+        if not _resident():
+            return
+        self.frag_engine.adopt_batch(names, sketches, dev)
+        if not self.low_memory:
+            self._pref_cache.adopt(names, dev["pref_words"])
+
+    def pref_matrix_builder(self, sketches: Sequence[NativeSketch]):
+        """matrix_builder for the resident packed screen: builds the
+        (n, W) matrix on the device from device-born prefilter rows
+        (index_copy_ per batch), uploading host-packed rows only for the
+        rows the cache lost. None when no row is device-born."""
+        if not _resident():
+            return None
+        keys = [self.key_for(s) for s in sketches]
+        if not any(self._pref_cache.get(k) is not None for k in keys):
+            return None
+        bits = self.params.prefilter_bits
+        dev = self.device
+
+        def build(n: int) -> torch.Tensor:
+            x = torch.zeros((n, bits // 32), dtype=torch.int32, device=dev)
+            by_batch: Dict[int, Tuple[torch.Tensor, List[int], List[int]]] = {}
+            missing: List[int] = []
+            for i, key in enumerate(keys):
+                hit = self._pref_cache.get(key)
+                if hit is None:
+                    missing.append(i)
+                else:
+                    arr, row = hit
+                    _, dst, src = by_batch.setdefault(id(arr), (arr, [], []))
+                    dst.append(i)
+                    src.append(row)
+            for arr, dst, src in by_batch.values():
+                x.index_copy_(
+                    0, torch.tensor(dst, device=dev),
+                    arr.index_select(0, torch.tensor(src, device=dev)))
+            step = max(1, (64 << 20) // (bits // 8))
+            for lo in range(0, len(missing), step):
+                rows = missing[lo:lo + step]
+                block = np.stack([pack_indicator(sketches[i].prefilter_buckets,
+                                                 bits) for i in rows])
+                x.index_copy_(0, torch.tensor(rows, device=dev),
+                              words_to_torch(block).to(dev))
+            m = metrics.current()
+            m.count("screen_rows_device_born", n - len(missing))
+            m.count("screen_rows_host_uploaded", len(missing))
+            logger.info("Resident screen matrix: %d device-born rows, %d "
+                        "host-uploaded", n - len(missing), len(missing))
+            return x
+
+        return build
+
+    def _sketch_on_device(self, missing: Sequence[str]) -> int:
+        """Device-sketch genome files into the store, batch by batch;
+        returns the bases sketched."""
+        from galah_tpu_torch.ops.device_sketch import iter_device_sketch_files
+
+        bases = 0
+        for idx, sketches, dev in iter_device_sketch_files(
+                missing, self.params, self.device, threads=self.threads):
+            names = [missing[i] for i in idx]
+            self._adopt(names, sketches, dev)
+            for p, sk in zip(names, sketches):
+                self._store.put(p, sk)
+                bases += sk.total_len
+        return bases
+
     def sketch_many(self, paths: Sequence[str]) -> Sequence[NativeSketch]:
         """Sketch every path not yet in the store. Returns the sketches
         in `paths` order: a list, or in low-memory mode a lazy view that
@@ -307,7 +443,9 @@ class NativeContext:
             self._sketched_any = True
             bases = 0
             with metrics.current().phase("sketch"):
-                if self.threads > 1 and len(missing) > 1:
+                if _use_device_sketch(self.device):
+                    bases = self._sketch_on_device(missing)
+                elif self.threads > 1 and len(missing) > 1:
                     with ThreadPoolExecutor(max_workers=self.threads) as ex:
                         sketches = ex.map(
                             lambda p: sketch_file_native(p, self.params),
@@ -328,9 +466,37 @@ class NativeContext:
             return _LazySketchList(self._store, list(paths))
         return [self._store.get(p) for p in paths]
 
+    def sketch_contigs(self, paths: Sequence[str]) -> List[NativeSketch]:
+        """One sketch per contig, across files, in file order (the unit
+        order of the reference's contig mode). Contig sketches stay in
+        memory in every mode, as in the reference."""
+        missing = [p for p in dict.fromkeys(paths)
+                   if p not in self._contig_store]
+        if missing:
+            self._sketched_any = True
+            with metrics.current().phase("sketch"):
+                if _use_device_sketch(self.device):
+                    self._sketch_contigs_on_device(missing)
+                else:
+                    for path in missing:
+                        self._contig_store[path] = sketch_contigs_native(
+                            path, self.params, threads=self.threads)
+            metrics.current().count(
+                "contigs_sketched",
+                sum(len(self._contig_store[p]) for p in missing))
+        return [sk for p in paths for sk in self._contig_store[p]]
+
+    def _sketch_contigs_on_device(self, missing: Sequence[str]) -> None:
+        from galah_tpu_torch.ops.device_sketch import device_sketch_contig_files
+
+        for path, sketches in zip(missing, device_sketch_contig_files(
+                missing, self.params, self.device, threads=self.threads,
+                on_batch=self._adopt)):
+            self._contig_store[path] = sketches
+
 
 class NativePreclusterer(PreclusterDistanceFinder):
-    supports_contigs = False
+    supports_contigs = True
 
     def __init__(
         self,
@@ -360,8 +526,18 @@ class NativePreclusterer(PreclusterDistanceFinder):
     ) -> SortedPairDistanceCache:
         return self._screen_and_verify(self.ctx.sketch_many(genome_fasta_paths))
 
-    def distances_contigs(self, genome_fasta_paths, contig_names):
-        raise not_supported("--cluster-contigs")
+    def distances_contigs(
+        self, genome_fasta_paths: Sequence[str], contig_names: Sequence[str]
+    ) -> SortedPairDistanceCache:
+        """Contig mode: one unit per contig, screened and verified as
+        genomes are."""
+        sketches = self.ctx.sketch_contigs(genome_fasta_paths)
+        if [s.name for s in sketches] != list(contig_names):
+            raise ValueError(
+                "Contig names passed to distances_contigs do not match file "
+                "contents"
+            )
+        return self._screen_and_verify(sketches)
 
     def distances_with_references(
         self, genome_fasta_paths: Sequence[str], reference_genomes: Sequence[str]
@@ -440,7 +616,11 @@ class NativePreclusterer(PreclusterDistanceFinder):
             screen, opts = screen_triangle_popcount, {}
         else:
             screen = screen_triangle_packed
-            opts = {"cache_blocks": not ctx.low_memory}
+            opts = {
+                "cache_blocks": not ctx.low_memory,
+                "matrix_builder": (None if ctx.low_memory
+                                   else ctx.pref_matrix_builder(sketches)),
+            }
         res = self._timed_screen(
             n * (n - 1) // 2, screen,
             _LazyPackedRows(sketches, bits),

@@ -156,4 +156,13 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    # K5 (seq, unit_off, run_off, bounds, bin2frag, bin_off, g, total_runs,
+    # run_len, k, fthresh, gthresh, member_shift, prefilter_shift, member,
+    # pref, keys, n_keys, threads, stream) returns a CUDA error code.
+    lib.galah_device_sketch.argtypes = [
+        *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 4,
+        ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
+        *[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.galah_device_sketch.restype = ctypes.c_int
     return lib

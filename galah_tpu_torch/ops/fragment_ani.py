@@ -206,6 +206,37 @@ class _BitmapPool:
             self.buffer.view(-1).index_add_(0, flat, val)
             lo = hi
 
+    def adopt(self, keys, src: torch.Tensor, src_rows: Sequence[int],
+              popcounts: Sequence[float]) -> None:
+        """Make `keys` resident by copying rows `src_rows` of a
+        device-born (G, W) bitmap tensor into the pool, device to device
+        (galah_tpu/ops/fragment_ani.py::_BitmapPool.adopt). Keys already
+        resident stay as they are. Growth follows `ensure`, so one
+        batch's keys never evict each other."""
+        todo, seen = [], set()
+        for i, key in enumerate(keys):
+            if key in self._rows:
+                self._rows.move_to_end(key)
+            elif key not in seen:
+                seen.add(key)
+                todo.append(i)
+        if not todo:
+            return
+        want = min(
+            max(len(self._rows) + len(todo), self.capacity),
+            max(self.hard_cap, len(todo)),
+        )
+        if want > self.capacity:
+            self._grow_to(1 << (want - 1).bit_length())
+        dst = []
+        for i in todo:
+            r = self._row_for(keys[i])
+            self._popc[r] = float(popcounts[i])
+            dst.append(r)
+        rows = torch.tensor([src_rows[i] for i in todo], device=self.device)
+        self.buffer.index_copy_(0, torch.tensor(dst, device=self.device),
+                                src.index_select(0, rows))
+
     def rows(self, keys) -> Tuple[np.ndarray, np.ndarray]:
         """(rows (G,) int64, popcounts (G,) float32) host arrays for
         resident `keys`."""
@@ -241,6 +272,15 @@ class FragmentAniEngine:
             self.pool,
             device,
         )
+
+    def adopt_batch(self, keys, sketches: Sequence[NativeSketch],
+                    dev) -> None:
+        """Adopt one device-sketch batch's member bitmaps
+        (dev["member_words"], rows in `keys` order) into the bitmap pool,
+        with no host round trip. The host sketches stay the fallback for
+        any key the pool evicts later."""
+        self.pool.adopt(keys, dev["member_words"], range(len(keys)),
+                        [s.member_popcount for s in sketches])
 
     def one_to_many(
         self,

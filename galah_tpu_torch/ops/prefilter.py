@@ -14,7 +14,9 @@ reference block) tile of a rectangle (screen_rectangle_packed); per tile:
    the hits leave the device, their values rounded to bfloat16;
 5. host decode under the reference's emit rules (_emit_tile).
 
-Resident sweeps upload the packed matrix once and slice its tiles;
+Resident sweeps upload the packed matrix once (or take it from the
+engine's matrix builder, which assembles it from device-born sketch
+rows) and slice its tiles;
 streaming sweeps (low-memory mode, or a matrix over the device budget)
 upload each tile's row blocks from the host row sequence. The two keep
 the reference's two overflow rules (_screen_tile): a resident tile is
@@ -30,7 +32,7 @@ exactly as the reference's sweeps emit them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -258,6 +260,7 @@ def screen_triangle_packed(
     device: torch.device,
     block: int = DEFAULT_BLOCK,
     cache_blocks: bool = True,
+    matrix_builder: Optional[Callable[[int], torch.Tensor]] = None,
 ) -> ScreenResult:
     """Upper-triangle screen over packed uint32 bitmap rows.
 
@@ -266,7 +269,10 @@ def screen_triangle_packed(
     to `device` once and the tiles are slices of it, unless
     cache_blocks=False (low-memory mode) or the matrix exceeds
     _device_resident_budget: then each tile's blocks stream from the
-    host (the reference's streaming branch, with its overflow rule)."""
+    host (the reference's streaming branch, with its overflow rule).
+    matrix_builder(n), when given, supplies the resident (n, W) int32
+    matrix on `device` instead of the upload (the engine builds it from
+    device-born sketch rows)."""
     n = len(packed)
     if n == 0:
         return _empty_result()
@@ -274,7 +280,11 @@ def screen_triangle_packed(
     w = _row_width(packed)
     kw = dict(triangle=True, block=block, k=k)
     if cache_blocks and n * w * 4 <= _device_resident_budget(device):
-        x, s = _host_block(packed, sizes_f, 0, n, device)
+        if matrix_builder is not None:
+            x = matrix_builder(n)
+            s = torch.from_numpy(sizes_f).to(device)
+        else:
+            x, s = _host_block(packed, sizes_f, 0, n, device)
         tiles = -(-n // block) * (-(-n // block) + 1) // 2
         m = metrics.current()
         m.count("screen_tiles", tiles)

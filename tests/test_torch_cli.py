@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from galah_tpu.cli.main import main as jax_main
-from galah_tpu.utils.synth import make_families
+from galah_tpu.utils.synth import make_contig_corpus, make_families
 from galah_tpu_torch.cli.main import main as torch_main
 from galah_tpu_torch.utils.device import NO_CUDA_MESSAGE, resolve_device
 
@@ -27,6 +27,15 @@ def corpus(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli_corpus")
     paths, fams = make_families(str(d), 4, 4, genome_length=60_000, seed=3)
     return str(d), paths, fams
+
+
+@pytest.fixture(scope="module")
+def contig_corpus(tmp_path_factory):
+    """40 families of 5 contigs of 5 kb in one FASTA."""
+    path = tmp_path_factory.mktemp("contig_corpus") / "contigs.fna"
+    names, fams = make_contig_corpus(str(path), 40, 5, contig_length=5_000,
+                                     seed=21)
+    return str(path), names, fams
 
 
 def _cluster_argv(corpus_dir: str, out: Path):
@@ -158,23 +167,92 @@ def test_indicator_screen_is_refused(corpus, tmp_path, monkeypatch, capsys):
     assert "not yet supported by galah_tpu_torch" in capsys.readouterr().err
 
 
-# The modes the port runs, as (extra flags, GALAH_TPU_SCREEN).
+@pytest.mark.parametrize("device_sketch", ["1", "0"])
+def test_contig_mode_matches_jax_package(contig_corpus, tmp_path, monkeypatch,
+                                         device_sketch):
+    """--cluster-contigs --small-contigs: the port, sketching on the
+    "device" (the plain version of K5 on the CPU) or on the host, gives
+    the JAX CLI's clusters.tsv, one cluster per contig family."""
+    from galah_tpu_torch.ops import device_sketch as ds
+
+    path, names, fams = contig_corpus
+    monkeypatch.setenv("GALAH_TPU_DEVICE_SKETCH", device_sketch)
+    argv = ["cluster", "-f", path, "--cluster-contigs", "--small-contigs",
+            "--ani", "95", "-q"]
+    spied = []
+    real = ds.sketch_host_batch
+    monkeypatch.setattr(ds, "sketch_host_batch",
+                        lambda *a, **k: spied.append(1) or real(*a, **k))
+    tsv = _both_clis(argv, tmp_path, monkeypatch, "packed",
+                     ("screen_triangle_packed", True))
+    assert bool(spied) == (device_sketch == "1")
+    clusters = _families(tsv, names, fams)
+    assert len(clusters) == 40
+    assert len(tsv.splitlines()) == len(names)
+
+
+def _write_contigs(path: Path, names):
+    path.write_text("".join(f">{n}\nACGTACGTTTGACCA\n" for n in names))
+    return str(path)
+
+
+CONTIG_ERRORS = {
+    "both-sizes": ["--small-contigs", "--large-contigs"],
+    "no-size": [],
+    "rep-dir": ["--small-contigs", "--output-representative-fasta-directory",
+                "reps"],
+    "rep-dir-copy": ["--small-contigs",
+                     "--output-representative-fasta-directory-copy", "reps"],
+    "duplicate": ["--small-contigs"],
+    "references": ["--small-contigs", "--reference-genomes", "ref.fna"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONTIG_ERRORS))
+def test_contig_errors_match_jax_package(tmp_path, monkeypatch, capsys, case):
+    """Each contig-mode refusal: the JAX CLI's exit code and message."""
+    a = _write_contigs(tmp_path / "a.fna", ["x1", "x2\tcomment"])
+    b = _write_contigs(tmp_path / "b.fna",
+                       ["x2", "x3"] if case == "duplicate" else ["x3"])
+    monkeypatch.chdir(tmp_path)
+    argv = ["cluster", "-f", a, b, "--cluster-contigs", *CONTIG_ERRORS[case],
+            "--output-cluster-definition", str(tmp_path / "x.tsv")]
+    got = []
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        got.append((e.value.code, capsys.readouterr().err))
+    assert got[0] == got[1]
+    assert got[1][0] not in (0, None)
+    assert not (tmp_path / "x.tsv").exists()
+
+
+# The modes the port runs, as (extra flags or None for reference mode,
+# GALAH_TPU_SCREEN, GALAH_TPU_DEVICE_SKETCH, contig mode).
 PORT_MODES = {
-    "genome": ([], "packed"),
-    "low-memory": (["--low-memory"], "packed"),
-    "popcount": ([], "popcount"),
-    "reference": (None, "packed"),
+    "genome": ([], "packed", "0", False),
+    "low-memory": (["--low-memory"], "packed", "0", False),
+    "popcount": ([], "popcount", "0", False),
+    "reference": (None, "packed", "0", False),
+    "device-sketch": ([], "packed", "1", False),
+    "device-sketch-low-memory": (["--low-memory"], "packed", "1", False),
+    "contig": (["--cluster-contigs", "--small-contigs"], "packed", "0", True),
+    "contig-device-sketch": (["--cluster-contigs", "--small-contigs"],
+                             "packed", "1", True),
 }
 
 
 @pytest.mark.parametrize("mode", sorted(PORT_MODES))
-def test_module_entry_point_never_imports_jax(corpus, tmp_path, mode):
+def test_module_entry_point_never_imports_jax(corpus, contig_corpus, tmp_path,
+                                              mode):
     """`python -m galah_tpu_torch cluster` in each mode the port runs,
     in a fresh interpreter that first imports every module of the port:
     neither JAX nor anything of the JAX package gets imported."""
     d, paths, fams = corpus
-    flags, screen = PORT_MODES[mode]
+    flags, screen, device_sketch, contigs = PORT_MODES[mode]
     out = tmp_path / "sub.tsv"
+    want_lines = 16
     if flags is None:  # reference mode: one reference per family
         refs = [paths[fams.index(f)] for f in sorted(set(fams))]
         (tmp_path / "genomes.txt").write_text(
@@ -182,6 +260,11 @@ def test_module_entry_point_never_imports_jax(corpus, tmp_path, mode):
         argv = ["galah_tpu_torch", "cluster", "--genome-fasta-list",
                 str(tmp_path / "genomes.txt"), "--reference-genomes", *refs,
                 "--ani", "95", "--output-cluster-definition", str(out), "-q"]
+    elif contigs:
+        path, names, _ = contig_corpus
+        want_lines = len(names)
+        argv = ["galah_tpu_torch", "cluster", "-f", path, "--ani", "95",
+                "--output-cluster-definition", str(out), "-q", *flags]
     else:
         argv = ["galah_tpu_torch"] + _cluster_argv(d, out) + flags
     code = (
@@ -198,15 +281,21 @@ def test_module_entry_point_never_imports_jax(corpus, tmp_path, mode):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'galah_tpu'))\n"
         "print('FOREIGN_MODULES', bad)\n"
+        "from galah_tpu_torch.utils import metrics\n"
+        "print('DEVICE_BATCHES', "
+        "int(metrics.current().counters.get('sketch_device_batches', 0)))\n"
         "sys.exit(rc)\n"
     )
     env = dict(os.environ, GALAH_TPU_PLATFORM="cpu", GALAH_TPU_SCREEN=screen,
+               GALAH_TPU_DEVICE_SKETCH=device_sketch,
                PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "FOREIGN_MODULES []" in proc.stdout
-    assert len(out.read_text().splitlines()) == 16
+    batches = int(proc.stdout.split("DEVICE_BATCHES")[1].split()[0])
+    assert (batches > 0) == (device_sketch == "1")
+    assert len(out.read_text().splitlines()) == want_lines
 
 
 def test_no_cuda_device_is_an_error(corpus, tmp_path, monkeypatch, capsys):
@@ -234,10 +323,11 @@ def test_resolve_device(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--output-distance-cache", "d.npz"],
-    ["--cluster-contigs", "--small-contigs"],
+    ["--sketch-directory", "sketches"],
     ["--precluster-method", "finch"],
     ["--cluster-method", "fastani"],
     ["--sweep-checkpoint", "ckpt"],
+    ["--input-distance-cache", "d.npz"],
 ])
 def test_unported_modes_are_refused(corpus, tmp_path, monkeypatch, capsys, flags):
     d, _, _ = corpus

@@ -318,3 +318,98 @@ def test_count_kernels_raise_on_a_refused_launch(cuda_device, monkeypatch,
     with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
         fn(a, a)
     assert fn.launches == before
+
+
+# ------------------------------------------------------------ K5 sketching
+
+_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def _seq(rng, n, n_prob=0.0, lower_prob=0.0):
+    s = _BASES[rng.integers(0, 4, size=n)].copy()
+    if n_prob:
+        s[rng.random(n) < n_prob] = ord("N")
+    if lower_prob:
+        s[rng.random(n) < lower_prob] += 32
+    return s.tobytes()
+
+
+def _sketch_params(kind):
+    from galah_tpu_torch.sketch.fracminhash import (
+        NativeSketchParams,
+        small_genome_params,
+    )
+
+    return NativeSketchParams() if kind == "genome" else small_genome_params()
+
+
+def _k5_units(kind, seed):
+    """Ragged units: whole genomes with N runs and lowercase at the
+    default widths, or many single contigs at the small-genome ones, with
+    units of exactly k, under k, empty, and one of 2,000 short contigs
+    (many fragment bins in one thread's run)."""
+    rng = np.random.default_rng(seed)
+    if kind == "genome":
+        units = [[_seq(rng, 300_000, 0.001, 0.2), _seq(rng, 40_000)]
+                 for _ in range(5)]
+        units.append([_seq(rng, 150) for _ in range(2000)])
+    else:
+        units = [[_seq(rng, int(n), 0.002)]
+                 for n in rng.integers(200, 9000, size=37)]
+    units += [[_seq(rng, 15)], [b"A" * 15], [_seq(rng, 9)], [],
+              [b"A" * 5000]]
+    return units
+
+
+@pytest.mark.parametrize("kind", ["genome", "contig"])
+def test_k5_matches_plain_version(cuda_device, kind):
+    from galah_tpu_torch.ops import device_sketch as ds
+
+    params = _sketch_params(kind)
+    units = _k5_units(kind, 3 if kind == "genome" else 4)
+    hb = ds.plan_batch([f"u{i}" for i in range(len(units))], units, params)
+    batch = ds.upload_batch(hb, params, cuda_device)
+    before = ds.sketch_batch.launches
+    member, pref, keys = ds.sketch_batch(batch)
+    torch.cuda.synchronize()
+    assert ds.sketch_batch.launches == before + 1
+    pm, pp, pk = ds.sketch_batch_reference(batch)
+    assert torch.equal(member, pm)
+    assert torch.equal(pref, pp)
+    assert torch.equal(torch.sort(keys).values, torch.sort(pk).values)
+    assert keys.numel() > 1000
+
+
+@pytest.mark.parametrize("kind", ["genome", "contig"])
+def test_device_sketch_on_card_equals_host_sketcher(cuda_device, kind):
+    from galah_tpu_torch.ops import device_sketch as ds
+    from galah_tpu_torch.sketch.fracminhash import sketch_sequences_native
+
+    params = _sketch_params(kind)
+    units = _k5_units(kind, 5)
+    names = [f"u{i}" for i in range(len(units))]
+    got, dev = ds.device_sketch_batch(names, units, params, cuda_device,
+                                      return_device=True)
+    assert dev["member_words"].device.type == "cuda"
+    for name, seqs, g in zip(names, units, got):
+        want = sketch_sequences_native(name, seqs, params)
+        assert g.total_len == want.total_len
+        for f in ("prefilter_buckets", "member_buckets", "frag_offsets",
+                  "frag_buckets"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(want, f),
+                                          err_msg=f"{name} {f}")
+
+
+def test_k5_raises_on_a_refused_launch(cuda_device, monkeypatch):
+    """More threads a block than the card allows: the launch is refused
+    and the wrapper raises, counting no launch."""
+    from galah_tpu_torch.ops import device_sketch as ds
+
+    params = _sketch_params("contig")
+    hb = ds.plan_batch(["u"], [[b"ACGT" * 500]], params)
+    batch = ds.upload_batch(hb, params, cuda_device)
+    monkeypatch.setattr(ds, "K5_THREADS", 2048)
+    before = ds.sketch_batch.launches
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
+        ds.sketch_batch(batch)
+    assert ds.sketch_batch.launches == before
