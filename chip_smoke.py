@@ -24,17 +24,20 @@ exits non-zero):
    into a 4 MiB table) and at a 256 MiB table, K3 at unroll 1, 4 and 8
    and K4 at 8, 16 and 32, with index_select timed beside them; then each
    setting of both kernels against the plain version, bit-exact;
-4. sketch kernel: K5 (hash-and-select, csrc/device_sketch.cu) against
-   sketch_batch_reference on the card, bit-exact (bitmaps and sorted
-   keys), on 8 genomes of the main corpus and on 2,000 contigs of the
-   contig corpus, with CUDA-event times, its bound and its grid;
+4. sketch kernel: K5 (hash, select and per-fragment dedup,
+   csrc/device_sketch.cu) against sketch_batch_reference on the card,
+   bit-exact (bitmaps, per-fragment counts and buckets), on 8 genomes
+   and on the main path's 64-genome batch of the main corpus and on
+   2,000 contigs of the contig corpus, with CUDA-event times (the launch
+   alone, the product span, the plain version, the torch dedup K5
+   replaced), its bound and its grid;
 5. main path: `galah_tpu_torch cluster` over 1024 synthetic 1 Mb genomes
    (128 families of 8, 98% ANI within a family) must find exactly the
    128 families, sketching on the card through K5 (every sketch equal to
    the host C++ sketcher's, the screen matrix built from device-born
    rows) and screening through K1, with screen and verify on the card;
-   it prints the sketch phase's split (read, upload, K5, sort/dedup, host
-   copies);
+   it prints the sketch phase's split (read, upload, K5 and the bucket
+   gather, bitmaps to bucket lists, host copies);
 6. popcount path: the same run with GALAH_TPU_SCREEN=popcount must give
    a byte-identical clusters.tsv through K2, with K1 never launched;
 7. reference mode: the first genome of each family as
@@ -93,12 +96,8 @@ CONTIG_SEED = 13
 PARITY_CONTIGS = (400, 5)
 LOW_MEMORY_FAMILIES = 32       # --low-memory runs over these families only
 K5_GENOMES = 8                 # main-corpus genomes of K5's check
+K5_MAIN_GENOMES = 64           # the main path's batch (64 MiB / 2^20)
 K5_CONTIGS = 2_000             # contig-corpus contigs of K5's check
-# Integer operations K5 does per k-mer start, counted as 32-bit ones:
-# decode 1, both window updates 6, canonical min 1, validity 1,
-# splitmix64's 3 shifts and 3 xors on 64 bits (12) and its 2 64-bit
-# products (3 each, 6), two 64-bit threshold compares 4, bucket mask 1.
-K5_OPS_PER_POSITION = 32
 ANI_TOL = 1e-3                 # percentage points, GPU vs CPU verify ANI
 SCALE_ROWS = 10_240
 SCALE_BITS = 1 << 17
@@ -140,7 +139,7 @@ GATHER_SEED = 0
 GATHER_ITERS = 50
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s, int8 tensor-core operations/s, float32 operations/s outside
-# the tensor cores (the rate taken for 32-bit integer ALU work).
+# the tensor cores (the gather kernels' XORs).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12
@@ -464,36 +463,35 @@ def phase_gather() -> dict:
     }
 
 
-def _k5_bound(hb, params, n_keys: int):
-    """K5's bound on a planned batch: each input read once (sequence
-    bytes and the unit, run and bin arrays), both bitmaps and the keys
-    written once; K5_OPS_PER_POSITION integer operations per k-mer start
-    at the 32-bit ALU rate."""
-    g = len(hb.names)
-    read = (hb.seq.nbytes + hb.unit_off.nbytes + hb.run_off.nbytes
-            + hb.bounds.nbytes + hb.bin2frag.nbytes + hb.bin_off.nbytes)
-    written = g * (params.member_bits + params.prefilter_bits) // 8 + 8 * n_keys
-    return _bound_ms(read + written, K5_OPS_PER_POSITION * hb.starts,
-                     FP32_OPS_PER_S)
-
-
 def phase_sketch_kernel(genome_paths, contig_path: str) -> dict:
-    """K5 against its plain version on the card, bit-exact, on
-    K5_GENOMES genomes of the main corpus (at the main path's sketch
-    parameters) and K5_CONTIGS contigs of the contig corpus (at the
-    small-genome ones), with CUDA-event times; returns K5's JSON fields
-    (times and bound at the genome batch)."""
+    """K5 against its plain version on the card, bit-exact (both bitmaps,
+    the per-fragment counts and buckets), on K5_GENOMES genomes and the
+    main path's K5_MAIN_GENOMES-genome batch of the main corpus (at the
+    main path's sketch parameters) and on K5_CONTIGS contigs of the
+    contig corpus (at the small-genome ones). CUDA-event times: the
+    launch alone, the product span (bitmap zeroing, launch, the gather of
+    the fragment buckets), the plain version, and the torch sort /
+    unique / bincount dedup that K5's on-chip dedup replaced, on the
+    plain version's keys. Its bound (tools/k5_profile.py::k5_bound) takes
+    the instructions a k-mer start of K5's hash loop on its common path,
+    in all and by integer pipe, from `cuobjdump -sass` of the library
+    this run built, at the SM clock nvidia-smi reports. Returns K5's JSON
+    fields (at the main batch)."""
     import torch
 
     from galah_tpu_torch.engines.native import _shrink_bits
     from galah_tpu_torch.io.fasta import decompressed_size_estimate
+    from galah_tpu_torch.ops import _build
     from galah_tpu_torch.ops import device_sketch as ds
     from galah_tpu_torch.sketch.fracminhash import (
         NativeSketchParams,
         small_genome_params,
     )
+    from galah_tpu_torch.tools import k5_profile
 
     dev = torch.device("cuda", 0)
+    clock_hz = k5_profile.sm_clock_hz()
+    loops = k5_profile.k5_loops(str(_build.build_library().path))
     genome_params = _shrink_bits(
         NativeSketchParams(),
         max(decompressed_size_estimate(p) for p in genome_paths))
@@ -501,45 +499,76 @@ def phase_sketch_kernel(genome_paths, contig_path: str) -> dict:
     contigs = ds._FastaSource(contig_path)
     log("sketch-kernel", f"the C++ reader parsed the contig corpus "
                          f"({len(contigs.lengths)} records, {contigs.nbytes} "
-                         f"bases) in {time.perf_counter() - t0:.2f} s")
-    genomes = [ds._FastaSource(p) for p in genome_paths]
+                         f"bases) in {time.perf_counter() - t0:.2f} s; SM "
+                         f"clock {clock_hz / 1e6:.0f} MHz (max); K5's hash "
+                         f"loop a start on the common path (all, ALU pipe, "
+                         f"FMA pipe; SM clocks at the least): " + "; ".join(
+                             f"{tag} {lp['per_start']}, {lp['alu_per_start']}"
+                             f", {lp['fma_per_start']}; "
+                             f"{k5_profile.clocks_per_start(lp):.4f}"
+                             for tag, lp in (("wide", loops[False]),
+                                             ("narrow", loops[True]))))
+
+    def genomes(n):
+        srcs = [ds._FastaSource(p) for p in genome_paths[:n]]
+        return (genome_params, [str(p) for p in genome_paths[:n]],
+                [[(src, j) for j in range(len(src.lengths))] for src in srcs])
+
     cases = {
-        "genomes": (genome_params, [str(p) for p in genome_paths],
-                    [[(src, j) for j in range(len(src.lengths))]
-                     for src in genomes]),
+        "genomes": genomes(K5_GENOMES),
         "contigs": (small_genome_params(),
                     [contigs.name(j) for j in range(K5_CONTIGS)],
                     [[(contigs, j)] for j in range(K5_CONTIGS)]),
+        "main batch": genomes(K5_MAIN_GENOMES),
     }
     out = {}
     for name, (params, names, pieces) in cases.items():
         hb = ds._read_batch(names, pieces, params, time.perf_counter())
         batch = ds.upload_batch(hb, params, dev)
-        member, pref, keys = ds.sketch_batch(batch)
-        pm, pp, pk = ds.sketch_batch_reference(batch)
+        scratch = ds.SlotScratch()
+        got = ds.sketch_batch(batch, scratch)
+        member, pref, keys = ds.reference_keys(batch)
+        want = (member, pref,
+                *ds.dedup_keys(keys, params.member_bits, batch.n_frags))
         torch.cuda.synchronize()
-        keys, pk = torch.sort(keys).values, torch.sort(pk).values
-        err = max(_max_err(member, pm), _max_err(pref, pp),
-                  _max_err(keys, pk) if keys.numel() == pk.numel() else -1)
-        check(torch.equal(member, pm) and torch.equal(pref, pp)
-              and torch.equal(keys, pk), f"K5 != plain on the {name} batch")
-        ms = _time_ms(lambda: ds.sketch_batch(batch), 10)
+        err = max(_max_err(g, w) if g.shape == w.shape else -1
+                  for g, w in zip(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K5 != plain on the {name} batch")
+        n_buckets = int(got[3].numel())
+        member, pref, counts, _ = got
+        slots = scratch.get(batch.n_slots, dev)
+        kernel_ms = _time_ms(
+            lambda: ds.launch_k5(batch, member, pref, counts, slots), 20)
+        ms = _time_ms(lambda: ds.sketch_batch(batch, scratch), 10)
         plain_ms = _time_ms(lambda: ds.sketch_batch_reference(batch), 2)
-        bound_ms, bound_by = _k5_bound(hb, params, int(keys.numel()))
-        blocks, threads = ds.k5_grid(batch)
+        dedup_ms = _time_ms(
+            lambda: ds.dedup_keys(keys, params.member_bits, batch.n_frags), 5)
+        blocks, threads, smem, narrow = ds.k5_launch_shape(batch)
+        bound_ms, bound_by = k5_profile.k5_bound(hb, params, n_buckets,
+                                                 loops[narrow], clock_hz)
         log("sketch-kernel", f"K5 {name}: {len(names)} units, {hb.starts} "
-                             f"k-mer starts, {keys.numel()} keys: bit-exact; "
-                             f"kernel {ms:.4f} ms/batch (wrapper: zeroed "
-                             f"bitmaps, launch, key count read), plain "
-                             f"{plain_ms:.4f} ms; bound {bound_ms:.5f} ms by "
-                             f"{bound_by}; grid {blocks} x {threads} threads "
-                             f"({ds.RUN_LEN} starts a thread)")
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             f"k-mer starts, {batch.n_frags} fragments, "
+                             f"{n_buckets} distinct fragment buckets: "
+                             f"bit-exact; kernel {kernel_ms:.4f} ms (launch "
+                             f"alone), product span {ms:.4f} ms (zeroed "
+                             f"bitmaps, launch, bucket gather), plain "
+                             f"{plain_ms:.4f} ms, replaced torch dedup "
+                             f"{dedup_ms:.4f} ms; bound {bound_ms:.5f} ms by "
+                             f"{bound_by} ({bound_ms / kernel_ms:.1%} of it); "
+                             f"grid {blocks} x {threads} threads, "
+                             f"{smem} B shared a block ("
+                             f"{'narrow' if narrow else 'wide'} instance), "
+                             f"tiles up to {batch.tile_cap} starts")
+        out[name] = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None,
-                     "shape": f"{len(names)} {name}, {hb.starts} starts"}
-        del batch, member, pref, keys, pm, pp, pk
-    return out["genomes"]
+                     "library_ms": None, "product_ms": ms,
+                     "replaced_dedup_ms": dedup_ms,
+                     "shape": f"{len(names)} {name.split()[0]}, "
+                              f"{hb.starts} starts"}
+        del batch, scratch, got, want, member, pref, counts, keys, slots
+        torch.cuda.empty_cache()
+    return out["main batch"]
 
 
 @contextlib.contextmanager
@@ -714,7 +743,7 @@ def _log_run(phase: str, wall: float, m: dict, launches: dict, rec) -> None:
                    "it) " + json.dumps({
                        k: counters.get(f"sketch_{k}_s") for k in (
                            "lengths", "read", "read_wait", "upload", "kernel",
-                           "dedup", "copy")
+                           "unpack", "copy")
                    }) + f"; {int(counters['sketch_device_batches'])} "
                    f"batches, {int(counters['sketch_upload_bytes'])} bytes "
                    "uploaded")
@@ -1042,7 +1071,7 @@ def main() -> int:
         corpus, paths, fam_ids = make_main_corpus(work)
         contig_path, contig_names, contig_fams = make_contig_corpus(
             work, CONTIG_CORPUS, "contigs")
-        k5 = phase_sketch_kernel(paths[:K5_GENOMES], contig_path)
+        k5 = phase_sketch_kernel(paths, contig_path)
         main_launches, main_tsv = phase_main_path(work, corpus, paths,
                                                   fam_ids)
         k2_launches = phase_popcount_path(work, corpus, main_tsv)

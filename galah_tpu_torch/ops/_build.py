@@ -141,7 +141,12 @@ def _run_all(cmds: List[List[str]]) -> List[str]:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argtypes and restype declared."""
-    lib = ctypes.CDLL(str(build_library().path))
+    return bind(ctypes.CDLL(str(build_library().path)))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare every entry point's argtypes and restype on a loaded
+    kernel library; returns it."""
     # Both count entries take (a, b, out, m, n, w, split_words, stream)
     # and return a CUDA error code.
     for fn in (lib.galah_packed_popcount, lib.galah_popcount_screen):
@@ -156,13 +161,19 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    # K5 (seq, unit_off, run_off, bounds, bin2frag, bin_off, g, total_runs,
-    # run_len, k, fthresh, gthresh, member_shift, prefilter_shift, member,
-    # pref, keys, n_keys, threads, stream) returns a CUDA error code.
+    # K5 (seq, unit_off, tile_unit, tile_start, tile_end, tile_frag,
+    # frag_start, frag_end, frag_slot, n_tiles, tile_cap, max_frags, k,
+    # fthresh, gthresh, member_shift, prefilter_shift, member, pref,
+    # counts, scratch, threads, stream) returns a CUDA error code.
     lib.galah_device_sketch.argtypes = [
-        *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 4,
+        *[ctypes.c_void_p] * 9, *[ctypes.c_int] * 4,
         ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
         *[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.galah_device_sketch.restype = ctypes.c_int
+    # K5's launch shape (tile_cap, max_frags, k, member_shift, narrow*)
+    # returns its shared memory a block in bytes.
+    lib.galah_device_sketch_shared.argtypes = [
+        *[ctypes.c_int] * 4, ctypes.POINTER(ctypes.c_int)]
+    lib.galah_device_sketch_shared.restype = ctypes.c_longlong
     return lib

@@ -7,33 +7,32 @@ genome's contigs joined by one separator byte. One pass over them (K5,
 csrc/device_sketch.cu, on a CUDA tensor; `sketch_batch_reference`, plain
 torch, on a CPU tensor) decodes each base, forms the canonical k-mer of
 every start position, hashes it with splitmix64 and applies FracMinHash
-selection: the member and prefilter bitmaps of each unit and one key
-`fragment * member_bits + bucket` per fragment-selected k-mer. torch then
-sorts and deduplicates the keys into per-fragment buckets, turns the
-bitmaps into sorted bucket lists with `torch.nonzero`, and the host
-arrays of every NativeSketch of the batch come back in one copy. The
-result is bit-identical to the host sketcher (sketch/fracminhash.py and
-the C++ one it calls), which reads the same bytes.
+selection: the member and prefilter bitmaps of each unit and, per
+fragment, its sorted distinct member buckets, deduplicated on chip
+(the reference's per-fragment dedup). torch turns the bitmaps into
+sorted bucket lists with `torch.nonzero`, and the host arrays of every
+NativeSketch of the batch come back in one copy. The result is
+bit-identical to the host sketcher (sketch/fracminhash.py and the C++
+one it calls), which reads the same bytes.
 
 Host side, as in the reference: a genome's contigs are planned into
 the reference's fragment bins in concatenated coordinates (`plan_layout`,
-for a whole batch at once); units are batched by power-of-two padded
-length under a byte budget and a per-unit memory cap
-(`_batch_genome_cap`); files are read in two passes, lengths first, then
-a read per batch on a one-batch read-ahead thread. Files are parsed by
-the C++ reader (the bytes the C++ sketcher hashes), and the parses of
-the length pass are kept for the read pass within a byte budget, so a
-many-contig FASTA is parsed once.
+for a whole batch at once), and each unit is cut into K5's tiles of
+whole fragments; units are batched by power-of-two padded length under
+a byte budget and a per-unit memory cap (`_batch_genome_cap`); files are
+read in two passes, lengths first, then a read per batch on a one-batch
+read-ahead thread. Files are parsed by the C++ reader (the bytes the C++
+sketcher hashes), and the parses of the length pass are kept for the
+read pass within a byte budget, so a many-contig FASTA is parsed once.
 
 Not carried over from the reference, which worked around the TPU and its
 relay: 2-bit packing with a sparse list of invalid positions (PCIe moves
 1 byte a base faster than the host packs it), the scatter/prefix-sum
-fragment lookup (here one binary search a thread, then a forward walk),
-the routed, bitonic and segmented dedup kernels, the narrow transports
-and lazy host copies, the compile shadow (the CUDA library builds in
-seconds, before any batch) and the overflow fallback to the host
-sketcher (the key buffer holds one slot per k-mer start, so it cannot
-overflow).
+fragment lookup, the routed and bitonic dedup networks over whole units,
+the narrow transports and lazy host copies, the compile shadow (the CUDA
+library builds in seconds, before any batch) and the overflow fallback
+to the host sketcher (a fragment's list lives in its own positions, so
+it cannot overflow).
 """
 
 from __future__ import annotations
@@ -54,9 +53,11 @@ from galah_tpu_torch.io.fasta import read_fasta
 from galah_tpu_torch.sketch.fracminhash import NativeSketch, NativeSketchParams
 from galah_tpu_torch.utils import metrics
 
-# k-mer start positions a thread of K5 walks (after k - 1 of warm-up).
-RUN_LEN = 256
-# K5's threads a block.
+# A unit is cut into K5's tiles at multiples of this many start
+# positions, each cut inside a fragment moved back to the fragment's
+# start: a tile holds at most TILE_POSITIONS + fragment_length - 1 starts.
+TILE_POSITIONS = 8192
+# K5's threads a block (one block a tile; at most 256).
 K5_THREADS = 256
 # The byte that joins a genome's contigs: it decodes invalid, so no k-mer
 # spans two contigs.
@@ -112,20 +113,40 @@ class HostBatch:
     host needs to cut its outputs back into sketches. Unit u's bins are
     [bin_off[u], bin_off[u+1]): bin i starts at bounds[i] (unit
     coordinates, ascending from 0) and holds the batch-global fragment
-    bin2frag[i], -1 for separators, gaps and the tail."""
+    bin2frag[i], -1 for separators, gaps and the tail; fragment f covers
+    the starts [frag_start[f], frag_end[f]) of its unit. Tile t holds the
+    starts [tile_start[t], tile_end[t]) of unit tile_unit[t] and the
+    whole fragments [tile_frag[t], tile_frag[t+1]); the tiles cover every
+    position of every unit once, in order."""
 
     names: List[str]
     total_lens: List[int]
     seq: np.ndarray         # (N,) uint8, the units back to back
     contig_off: np.ndarray  # (C,) int64, each contig's first byte in seq
     unit_off: np.ndarray    # (G+1,) int64
-    run_off: np.ndarray     # (G+1,) int32
     bounds: np.ndarray      # (B,) int32
     bin2frag: np.ndarray    # (B,) int32
     bin_off: np.ndarray     # (G+1,) int32
     frag_off: np.ndarray    # (G+1,) int64, each unit's first fragment
+    frag_start: np.ndarray  # (F,) int32
+    frag_end: np.ndarray    # (F,) int32
+    frag_slot: np.ndarray   # (F+1,) int32, exclusive sum of fragment lengths
+    tile_unit: np.ndarray   # (T,) int32
+    tile_start: np.ndarray  # (T,) int32
+    tile_end: np.ndarray    # (T,) int32
+    tile_frag: np.ndarray   # (T+1,) int32
     starts: int             # k-mer start positions, all units
     read_s: float = 0.0     # host time reading and planning the batch
+
+    @property
+    def tile_cap(self) -> int:
+        """Starts in the longest tile."""
+        return int((self.tile_end - self.tile_start).max(initial=0))
+
+    @property
+    def max_tile_frags(self) -> int:
+        """Fragments in the tile that holds the most."""
+        return int(np.diff(self.tile_frag).max(initial=0))
 
 
 def plan_layout(names: Sequence[str], contig_lens: Sequence[Sequence[int]],
@@ -197,24 +218,55 @@ def plan_layout(names: Sequence[str], contig_lens: Sequence[Sequence[int]],
     bounds[main] = main_at
     bin2frag[main] = main_id
 
-    starts = np.maximum(ulen - k + 1, 0)
-    run_off = _excl_cumsum(-(-starts // RUN_LEN))
-    if run_off[-1] >= 1 << 31:
-        raise ValueError("device sketch batch too large: over 2^31 runs")
+    frag_slot = _excl_cumsum(fend - fstart)
+    if frag_slot[-1] >= 1 << 31:
+        raise ValueError("device sketch batch too large: fragments cover "
+                         "over 2^31 positions")
+    tile_unit, tile_start, tile_end, tile_frag = _plan_tiles(
+        unit_off, ulen, unit_off[funit] + fstart, unit_off[funit] + fend)
     return HostBatch(
         names=list(names),
         total_lens=total.tolist(),
         seq=np.full(int(unit_off[-1]), SEPARATOR, dtype=np.uint8),
         contig_off=unit_off[cunit] + coff,
         unit_off=unit_off,
-        run_off=run_off.astype(np.int32),
         bounds=bounds,
         bin2frag=bin2frag,
         bin_off=np.append(eoff[frag_off[:-1] + np.arange(g)],
                           eoff[-1]).astype(np.int32),
         frag_off=frag_off,
-        starts=int(starts.sum()),
+        frag_start=fstart.astype(np.int32),
+        frag_end=fend.astype(np.int32),
+        frag_slot=frag_slot.astype(np.int32),
+        tile_unit=tile_unit,
+        tile_start=tile_start,
+        tile_end=tile_end,
+        tile_frag=tile_frag,
+        starts=int(np.maximum(ulen - k + 1, 0).sum()),
     )
+
+
+def _plan_tiles(unit_off: np.ndarray, ulen: np.ndarray, gfs: np.ndarray,
+                gfe: np.ndarray):
+    """K5's tiles of a batch whose fragments cover [gfs, gfe) in batch
+    coordinates (ascending): each unit cut at every multiple of
+    TILE_POSITIONS, a cut strictly inside a fragment moved back to its
+    start. Returns (tile_unit, tile_start, tile_end, tile_frag) as
+    HostBatch holds them."""
+    ncut = -(-ulen // TILE_POSITIONS)
+    cu = np.repeat(np.arange(len(ulen)), ncut)
+    cut = unit_off[cu] + (np.arange(int(ncut.sum()))
+                          - _excl_cumsum(ncut)[cu]) * TILE_POSITIONS
+    if len(gfs):
+        j = np.maximum(np.searchsorted(gfs, cut, side="right") - 1, 0)
+        inside = (gfs[j] < cut) & (cut < gfe[j])
+        cut = np.where(inside, gfs[j], cut)
+    cut = np.unique(cut)
+    unit = np.searchsorted(unit_off, cut, side="right") - 1
+    end = np.append(cut[1:], unit_off[-1])
+    frag = np.append(np.searchsorted(gfs, cut, side="left"), len(gfs))
+    return (unit.astype(np.int32), (cut - unit_off[unit]).astype(np.int32),
+            (end - unit_off[unit]).astype(np.int32), frag.astype(np.int32))
 
 
 def plan_batch(names: Sequence[str], seq_lists: Sequence[Sequence[bytes]],
@@ -234,16 +286,26 @@ def plan_batch(names: Sequence[str], seq_lists: Sequence[Sequence[bytes]],
 @dataclass
 class DeviceBatch:
     """A HostBatch's arrays on a device, with the sketch parameters K5
-    takes."""
+    takes (the fragment bins stay on the host). `seq` is a view of N
+    bytes on storage that runs 16 bytes further (K5 stages whole 16-byte
+    vectors)."""
 
-    seq: torch.Tensor        # (N,) uint8
-    unit_off: torch.Tensor   # (G+1,) int64
-    run_off: torch.Tensor    # (G+1,) int32
-    bounds: torch.Tensor     # (B,) int32
-    bin2frag: torch.Tensor   # (B,) int32
-    bin_off: torch.Tensor    # (G+1,) int32
+    seq: torch.Tensor         # (N,) uint8
+    unit_off: torch.Tensor    # (G+1,) int64
+    frag_off: torch.Tensor    # (G+1,) int32
+    frag_start: torch.Tensor  # (F,) int32
+    frag_end: torch.Tensor    # (F,) int32
+    frag_slot: torch.Tensor   # (F+1,) int32
+    tile_unit: torch.Tensor   # (T,) int32
+    tile_start: torch.Tensor  # (T,) int32
+    tile_end: torch.Tensor    # (T,) int32
+    tile_frag: torch.Tensor   # (T+1,) int32
     n_units: int
-    total_runs: int
+    n_frags: int
+    n_slots: int            # scratch slots K5 writes fragments' buckets into
+    n_tiles: int
+    tile_cap: int
+    max_tile_frags: int
     starts: int
     k: int
     fthresh: int
@@ -256,15 +318,27 @@ class DeviceBatch:
         return self.seq.device
 
 
+_I32_FIELDS = ("frag_off", "frag_start", "frag_end", "frag_slot",
+               "tile_unit", "tile_start", "tile_end", "tile_frag")
+
+
 def upload_batch(hb: HostBatch, params: NativeSketchParams,
                  device: torch.device) -> DeviceBatch:
-    def up(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(device)
-
+    """Three copies to `device`: the bytes (16 bytes of padding after
+    them), the unit offsets, and the plan's fragment and tile arrays as
+    int32 in one buffer, split into views."""
+    n = hb.seq.size
+    seq = torch.empty(n + 16, dtype=torch.uint8, device=device)
+    seq[:n].copy_(torch.from_numpy(hb.seq))
+    parts = [np.asarray(getattr(hb, f), dtype=np.int32) for f in _I32_FIELDS]
+    flat = torch.from_numpy(np.concatenate(parts)).to(device)
+    views = torch.split(flat, [len(p) for p in parts])
     return DeviceBatch(
-        seq=up(hb.seq), unit_off=up(hb.unit_off), run_off=up(hb.run_off),
-        bounds=up(hb.bounds), bin2frag=up(hb.bin2frag), bin_off=up(hb.bin_off),
-        n_units=len(hb.names), total_runs=int(hb.run_off[-1]),
+        seq=seq[:n], unit_off=torch.from_numpy(hb.unit_off).to(device),
+        **dict(zip(_I32_FIELDS, views)),
+        n_units=len(hb.names), n_frags=len(hb.frag_start),
+        n_slots=int(hb.frag_slot[-1]), n_tiles=len(hb.tile_unit),
+        tile_cap=hb.tile_cap, max_tile_frags=hb.max_tile_frags,
         starts=hb.starts, k=params.k,
         fthresh=int(params.fragment_threshold),
         gthresh=int(params.genome_threshold),
@@ -273,56 +347,114 @@ def upload_batch(hb: HostBatch, params: NativeSketchParams,
 
 
 # Products of one batch: (member words (G, member_bits/32) int32,
-# prefilter words (G, prefilter_bits/32) int32, keys (n,) int64 in no
-# particular order).
-Products = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# prefilter words (G, prefilter_bits/32) int32, distinct buckets per
+# fragment (F,) int32, every fragment's distinct buckets in ascending
+# order, fragments in order, (sum of the counts,) int32).
+Products = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def sketch_batch(batch: DeviceBatch) -> Products:
-    """K5 on a CUDA batch; the plain version on a CPU batch. A CUDA batch
-    launches the kernel or raises."""
+class SlotScratch:
+    """K5's int32 scratch of fragment slots on a device, kept across a
+    run's batches: allocated for the largest batch asked of it (callers
+    that know their batches reserve the largest first) and reused."""
+
+    def __init__(self) -> None:
+        self.buffer: Optional[torch.Tensor] = None
+
+    def get(self, n: int, device: torch.device) -> torch.Tensor:
+        buf = self.buffer
+        if buf is None or buf.device != device or buf.numel() < n:
+            self.buffer = buf = None  # free it before the larger one
+            self.buffer = buf = torch.empty(max(1, n), dtype=torch.int32,
+                                            device=device)
+        return buf[:n]
+
+
+def sketch_batch(batch: DeviceBatch,
+                 scratch: Optional[SlotScratch] = None) -> Products:
+    """K5 on a CUDA batch, then each fragment's buckets gathered from
+    their slots into one array (torch cumsum and indexing); the plain
+    version on a CPU batch. A CUDA batch launches the kernel or raises.
+    `scratch` keeps the slot buffer between batches."""
     dev = batch.device
     if dev.type == "cpu":
         return sketch_batch_reference(batch)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from galah_tpu_torch.ops._build import load_library
-
     g = batch.n_units
     member = torch.zeros((g, batch.member_bits // 32), dtype=torch.int32,
                          device=dev)
     pref = torch.zeros((g, batch.prefilter_bits // 32), dtype=torch.int32,
                        device=dev)
-    keys = torch.empty(max(1, batch.starts), dtype=torch.int64, device=dev)
-    n_keys = torch.zeros(1, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = load_library().galah_device_sketch(
+    counts = torch.empty(batch.n_frags, dtype=torch.int32, device=dev)
+    slots = (scratch or SlotScratch()).get(batch.n_slots, dev)
+    launch_k5(batch, member, pref, counts, slots)
+    return member, pref, counts, gather_fragments(slots, counts,
+                                                  batch.frag_slot)
+
+
+def launch_k5(batch: DeviceBatch, member: torch.Tensor, pref: torch.Tensor,
+              counts: torch.Tensor, slots: torch.Tensor, lib=None) -> None:
+    """The K5 launch alone, into zeroed bitmaps, `counts` (F,) and
+    `slots` (batch.n_slots,) int32; raises if the launch is refused (a
+    block that needs more shared memory than the card has, too).
+    `lib` is the kernel library (by default the one the wrappers load)."""
+    from galah_tpu_torch.ops._build import load_library
+
+    lib = lib or load_library()
+    with torch.cuda.device(batch.device):
+        stream = torch.cuda.current_stream(batch.device).cuda_stream
+        err = lib.galah_device_sketch(
             batch.seq.data_ptr(), batch.unit_off.data_ptr(),
-            batch.run_off.data_ptr(), batch.bounds.data_ptr(),
-            batch.bin2frag.data_ptr(), batch.bin_off.data_ptr(),
-            g, batch.total_runs, RUN_LEN, batch.k,
-            batch.fthresh, batch.gthresh,
+            batch.tile_unit.data_ptr(), batch.tile_start.data_ptr(),
+            batch.tile_end.data_ptr(), batch.tile_frag.data_ptr(),
+            batch.frag_start.data_ptr(), batch.frag_end.data_ptr(),
+            batch.frag_slot.data_ptr(), batch.n_tiles, batch.tile_cap,
+            batch.max_tile_frags, batch.k, batch.fthresh, batch.gthresh,
             batch.member_bits.bit_length() - 1,
             batch.prefilter_bits.bit_length() - 1,
-            member.data_ptr(), pref.data_ptr(), keys.data_ptr(),
-            n_keys.data_ptr(), K5_THREADS, stream,
+            member.data_ptr(), pref.data_ptr(), counts.data_ptr(),
+            slots.data_ptr(), K5_THREADS, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"galah_device_sketch launch failed: CUDA error {err} "
-            f"(units={g}, runs={batch.total_runs}, threads={K5_THREADS})"
+            f"(tiles={batch.n_tiles}, threads={K5_THREADS}, tile of up to "
+            f"{batch.tile_cap} starts and {batch.max_tile_frags} fragments)"
         )
     sketch_batch.launches += 1
-    return member, pref, keys[: int(n_keys.item())]
 
 
 sketch_batch.launches = 0
 
 
-def k5_grid(batch: DeviceBatch) -> Tuple[int, int]:
-    """(blocks, threads a block) of K5's launch on `batch`."""
-    return -(-batch.total_runs // K5_THREADS), K5_THREADS
+def gather_fragments(slots: torch.Tensor, counts: torch.Tensor,
+                     frag_slot: torch.Tensor) -> torch.Tensor:
+    """Fragment f's counts[f] buckets from slots[frag_slot[f]...], for
+    every fragment in order, as one int32 array (one host sync for its
+    length)."""
+    if counts.numel() == 0:
+        return torch.empty(0, dtype=torch.int32, device=slots.device)
+    ends = torch.cumsum(counts, 0)
+    total = int(ends[-1])
+    shift = frag_slot[:-1].long() - (ends - counts)
+    idx = torch.arange(total, device=slots.device) + torch.repeat_interleave(
+        shift, counts.long(), output_size=total)
+    return slots[idx]
+
+
+def k5_launch_shape(batch: DeviceBatch) -> Tuple[int, int, int, bool]:
+    """(blocks, threads a block, shared memory a block in bytes, whether
+    the instance with the member bitmap in shared memory runs) of K5's
+    launch on `batch`, the last two as its launcher sizes them (asks the
+    kernel library, so it needs the CUDA build)."""
+    from galah_tpu_torch.ops._build import load_library
+
+    narrow = ctypes.c_int(0)
+    smem = load_library().galah_device_sketch_shared(
+        batch.tile_cap, batch.max_tile_frags, batch.k,
+        batch.member_bits.bit_length() - 1, ctypes.byref(narrow))
+    return batch.n_tiles, K5_THREADS, int(smem), bool(narrow.value)
 
 
 # ----------------------------------------------------------- plain version
@@ -379,10 +511,30 @@ def _words_from_bits(idx: torch.Tensor, g: int, bits: int) -> torch.Tensor:
 
 
 def sketch_batch_reference(batch: DeviceBatch) -> Products:
-    """Plain torch version of K5, on any device: the k-loop of shifts of
-    the reference's _hash_front over the whole batch, splitmix64 in int64,
-    torch.searchsorted for units and fragments, scatter_ for the bitmaps.
-    Keys come out in position order."""
+    """Plain torch version of K5, on any device: reference_keys, then
+    dedup_keys."""
+    member, pref, keys = reference_keys(batch)
+    return (member, pref,
+            *dedup_keys(keys, batch.member_bits, batch.n_frags))
+
+
+def dedup_keys(keys: torch.Tensor, member_bits: int,
+               n_frags: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(distinct buckets per fragment (F,) int32, the distinct buckets
+    in fragment-then-bucket order int32) of keys fragment * member_bits
+    + bucket, by torch sort, unique_consecutive and bincount."""
+    uk = torch.unique_consecutive(torch.sort(keys).values)
+    counts = torch.bincount(uk // member_bits, minlength=n_frags)
+    return counts.to(torch.int32), (uk & (member_bits - 1)).to(torch.int32)
+
+
+def reference_keys(batch: DeviceBatch):
+    """(member words, prefilter words, keys (n,) int64) of a batch: the
+    k-loop of shifts of the reference's _hash_front over the whole batch,
+    splitmix64 in int64, torch.searchsorted for units and fragments (on
+    the plan's fragment extents, not K5's tiles), scatter_ for the
+    bitmaps; one key fragment * member_bits + bucket per
+    fragment-selected start, in position order."""
     dev = batch.device
     g, k = batch.n_units, batch.k
     mb, pb = batch.member_bits, batch.prefilter_bits
@@ -408,15 +560,20 @@ def sketch_batch_reference(batch: DeviceBatch) -> Products:
     gsel = valid & lt_u64(h, batch.gthresh)
     member = _words_from_bits(unit[fsel] * mb + (h[fsel] & (mb - 1)), g, mb)
     pref = _words_from_bits(unit[gsel] * pb + (h[gsel] & (pb - 1)), g, pb)
-    # Bins in batch coordinates: a unit's bins shifted by its offset.
-    counts = (batch.bin_off[1:] - batch.bin_off[:-1]).long()
-    bin_unit = torch.repeat_interleave(
-        torch.arange(g, device=dev), counts, output_size=batch.bounds.numel())
-    starts = batch.bounds.long() + batch.unit_off[bin_unit]
+    # Fragments in batch coordinates (ascending): a unit's shifted by its
+    # offset. A start lies in fragment j, the last that starts at or
+    # before it, when it also lies before j's end; gfe's trailing 0 turns
+    # j = -1 (before every fragment) down.
+    frag_unit = torch.repeat_interleave(
+        torch.arange(g, device=dev), torch.diff(batch.frag_off).long(),
+        output_size=batch.n_frags)
+    gfs = batch.frag_start.long() + batch.unit_off[frag_unit]
+    gfe = torch.cat([batch.frag_end.long() + batch.unit_off[frag_unit],
+                     torch.zeros(1, dtype=torch.int64, device=dev)])
     sel = pos[fsel]
-    frag = batch.bin2frag[torch.searchsorted(starts, sel, right=True) - 1]
-    inf = frag >= 0
-    keys = frag[inf].long() * mb + (h[fsel][inf] & (mb - 1))
+    frag = torch.searchsorted(gfs, sel, right=True) - 1
+    inf = sel < gfe[frag]
+    keys = frag[inf] * mb + (h[fsel][inf] & (mb - 1))
     return member, pref, keys
 
 
@@ -471,33 +628,31 @@ class _Clock:
 
 def sketch_host_batch(
     hb: HostBatch, params: NativeSketchParams, device: torch.device,
+    scratch: Optional[SlotScratch] = None,
 ) -> Tuple[List[NativeSketch], Dict[str, torch.Tensor]]:
-    """Sketch a planned batch on `device`: upload, K5 (or its plain
-    version on the CPU), sort/dedup, one host copy. Returns the sketches
-    and the device-born bitmaps {"member_words", "pref_words"}, (G, W)
-    int32 rows in the batch's unit order. Adds the batch's split to the
-    current metrics: sketch_{upload,kernel,dedup,copy}_s."""
+    """Sketch a planned batch on `device`: upload, K5 and the gather of
+    its fragment buckets (or the plain version on the CPU), bitmaps to
+    bucket lists, one host copy. Returns the sketches and the device-born
+    bitmaps {"member_words", "pref_words"}, (G, W) int32 rows in the
+    batch's unit order. Adds the batch's split to the current metrics:
+    sketch_{upload,kernel,unpack,copy}_s."""
     clock = _Clock(device)
     clock.mark()
     batch = upload_batch(hb, params, device)
     clock.mark()
-    member, pref, keys = sketch_batch(batch)
+    member, pref, frag_counts, frag_buckets = sketch_batch(batch, scratch)
     clock.mark()
-    mbits = params.member_bits
-    uk = torch.unique_consecutive(torch.sort(keys).values)
-    frag_counts = torch.bincount(uk // mbits, minlength=int(hb.frag_off[-1]))
-    frag_buckets = (uk & (mbits - 1)).to(torch.int32)
     member_flat, member_counts = _bits_to_buckets(member)
     pref_flat, pref_counts = _bits_to_buckets(pref)
     g = len(hb.names)
     packed = torch.cat([
         member_counts.to(torch.int32), pref_counts.to(torch.int32),
-        frag_counts.to(torch.int32), member_flat, pref_flat, frag_buckets,
+        frag_counts, member_flat, pref_flat, frag_buckets,
     ])
     clock.mark()
     host = packed.cpu().numpy()
     clock.mark()
-    up_s, k5_s, dedup_s, copy_s = clock.seconds()
+    up_s, k5_s, unpack_s, copy_s = clock.seconds()
 
     nf = int(hb.frag_off[-1])
     member_counts_h = host[:g].astype(np.int64)
@@ -526,7 +681,7 @@ def sketch_host_batch(
         ))
     m = metrics.current()
     for name, v in (("sketch_read_s", hb.read_s), ("sketch_upload_s", up_s),
-                    ("sketch_kernel_s", k5_s), ("sketch_dedup_s", dedup_s),
+                    ("sketch_kernel_s", k5_s), ("sketch_unpack_s", unpack_s),
                     ("sketch_copy_s", copy_s)):
         m.count(name, v)
     m.count("sketch_device_batches", 1)
@@ -558,20 +713,29 @@ def _batch_genome_cap(P: int, params: NativeSketchParams,
                       device: torch.device) -> int:
     """Most units of padded length P in one batch, so that the batch's
     per-unit device buffers stay within a quarter of the card's memory
-    (1 GiB on the CPU): both bitmaps, the sequence bytes, one int64 key
-    slot per position, and the sort of the expected selected keys
-    (galah_tpu/ops/device_sketch.py::_batch_genome_cap, sized for this
-    layout)."""
+    (1 GiB on the CPU): both bitmaps, the sequence bytes, K5's int32 slot
+    per fragment position, and the gather of the expected distinct
+    buckets (galah_tpu/ops/device_sketch.py::_batch_genome_cap, sized for
+    this layout)."""
     if device.type == "cuda":
         budget = torch.cuda.mem_get_info(device)[1] // 4
     else:
         budget = 1 << 30
     per_unit = (
         (params.member_bits + params.prefilter_bits) // 8
-        + 9 * P
+        + 5 * P
         + 32 * (P // max(1, params.fragment_scale) + 1)
     )
     return max(1, budget // per_unit)
+
+
+def _run_scratch(device: torch.device, batch_bases) -> SlotScratch:
+    """A run's K5 scratch, allocated up front on a card for its largest
+    batch (a batch's fragments cover at most its bases)."""
+    scratch = SlotScratch()
+    if device.type == "cuda":
+        scratch.get(max(batch_bases, default=0), device)
+    return scratch
 
 
 def _chunks(buckets: Dict[int, list], max_batch_bytes: int,
@@ -736,8 +900,10 @@ def iter_device_sketch_files(
                 [[(src, j) for j in range(len(src.lengths))] for src in srcs],
                 params, t0, ex)
 
+        scratch = _run_scratch(
+            device, (sum(lengths[i] for i in c) for c in chunks))
         yield from _pipelined(len(chunks), read, lambda ci, hb: (
-            chunks[ci], *sketch_host_batch(hb, params, device)))
+            chunks[ci], *sketch_host_batch(hb, params, device, scratch)))
 
 
 def device_sketch_files(
@@ -786,8 +952,10 @@ def iter_device_sketch_contig_files(
         return _read_batch(names, [[(srcs[pi], cj)] for pi, cj in items],
                            params, t0)
 
+    scratch = _run_scratch(
+        device, (sum(per_file[pi][cj] for pi, cj in c) for c in chunks))
     yield from _pipelined(len(chunks), read, lambda ci, hb: (
-        chunks[ci], *sketch_host_batch(hb, params, device)))
+        chunks[ci], *sketch_host_batch(hb, params, device, scratch)))
 
 
 def device_sketch_contig_files(

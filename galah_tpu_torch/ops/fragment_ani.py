@@ -13,11 +13,13 @@ Two kernels, both plain torch on the device:
 - the grouped kernel (_forward_kernel): one query stream against many
   reference bitmaps, for pairs with a stream over the budget.
 Routing is per undirected pair, so a pair's two directions never mix the
-two kernels' numerics (fixed-point vs float32 identity sums).
+two kernels' numerics (fixed-point vs float32 identity sums);
+GALAH_TPU_VERIFY=pairtable|grouped forces one kernel for every pair.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict, defaultdict
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
@@ -324,17 +326,26 @@ class FragmentAniEngine:
         not ported). Each undirected pair goes to the pair-table kernel
         when both streams are at most max_flat_hashes // 8 hashes, else
         both directions go to the grouped kernel.
+        GALAH_TPU_VERIFY=pairtable|grouped sends every directed pair to
+        that kernel instead, as the reference does; under pairtable a
+        stream over max_flat_hashes raises the pair table's ValueError.
         Returns {(a, b): (ani_pct, af_a_dir, af_b_dir)}."""
-        thresh = self.pair_table.cfg.max_flat_hashes // 8
-        small_d, large_d = set(), set()
-        for a, b in pairs:
-            both_small = (
-                len(sketches_by_key[a].frag_buckets) <= thresh
-                and len(sketches_by_key[b].frag_buckets) <= thresh
-            )
-            (small_d if both_small else large_d).update(((a, b), (b, a)))
-        small_pairs = sorted(small_d)
-        large_pairs = sorted(large_d)
+        mode = os.environ.get("GALAH_TPU_VERIFY")
+        if mode in ("grouped", "pairtable"):
+            directed = sorted({d for a, b in pairs for d in ((a, b), (b, a))})
+            small_pairs = directed if mode == "pairtable" else []
+            large_pairs = directed if mode == "grouped" else []
+        else:
+            thresh = self.pair_table.cfg.max_flat_hashes // 8
+            small_d, large_d = set(), set()
+            for a, b in pairs:
+                both_small = (
+                    len(sketches_by_key[a].frag_buckets) <= thresh
+                    and len(sketches_by_key[b].frag_buckets) <= thresh
+                )
+                (small_d if both_small else large_d).update(((a, b), (b, a)))
+            small_pairs = sorted(small_d)
+            large_pairs = sorted(large_d)
 
         m = metrics.current()
         if small_pairs:

@@ -361,6 +361,22 @@ def _k5_units(kind, seed):
     return units
 
 
+def _k5_check(batch, scratch=None):
+    """K5's products on `batch` against the plain version's, exactly;
+    returns them."""
+    from galah_tpu_torch.ops import device_sketch as ds
+
+    before = ds.sketch_batch.launches
+    got = ds.sketch_batch(batch, scratch)
+    torch.cuda.synchronize()
+    assert ds.sketch_batch.launches == before + 1
+    want = ds.sketch_batch_reference(batch)
+    for name, g, w in zip(("member", "pref", "counts", "buckets"), got, want):
+        assert g.dtype == w.dtype == torch.int32, name
+        assert torch.equal(g, w), name
+    return got
+
+
 @pytest.mark.parametrize("kind", ["genome", "contig"])
 def test_k5_matches_plain_version(cuda_device, kind):
     from galah_tpu_torch.ops import device_sketch as ds
@@ -369,15 +385,44 @@ def test_k5_matches_plain_version(cuda_device, kind):
     units = _k5_units(kind, 3 if kind == "genome" else 4)
     hb = ds.plan_batch([f"u{i}" for i in range(len(units))], units, params)
     batch = ds.upload_batch(hb, params, cuda_device)
-    before = ds.sketch_batch.launches
-    member, pref, keys = ds.sketch_batch(batch)
-    torch.cuda.synchronize()
-    assert ds.sketch_batch.launches == before + 1
-    pm, pp, pk = ds.sketch_batch_reference(batch)
-    assert torch.equal(member, pm)
-    assert torch.equal(pref, pp)
-    assert torch.equal(torch.sort(keys).values, torch.sort(pk).values)
-    assert keys.numel() > 1000
+    _, _, counts, buckets = _k5_check(batch)
+    assert buckets.numel() > 1000
+    assert int(counts.sum()) == buckets.numel()
+    blocks, _, smem, narrow = ds.k5_launch_shape(batch)
+    # Contig widths (2^16 member bits) take the instance with the member
+    # bitmap in shared memory.
+    assert (blocks, narrow) == (hb.tile_unit.size, kind == "contig")
+    assert 0 < smem < 228 << 10
+
+
+@pytest.mark.parametrize("kind", ["genome", "contig"])
+@pytest.mark.parametrize("tile", [1000, 64])
+def test_k5_tile_edges_and_repeats(cuda_device, monkeypatch, tile, kind):
+    """Tiles cut every `tile` starts (each cut inside a fragment moved
+    to its start), so k-mers straddle tile ends and need the halo; a
+    homopolymer fragment (every start selects bucket 0: one radix bin of
+    equal buckets, or past 1024 of them the bitonic sort) and an all-N one. At the contig widths a multi-tile
+    unit's member bits go to device memory, a one-tile unit's through a
+    bitmap in shared memory. One scratch serves both batches, the larger
+    first."""
+    from galah_tpu_torch.ops import device_sketch as ds
+
+    monkeypatch.setattr(ds, "TILE_POSITIONS", tile)
+    rng = np.random.default_rng(tile)
+    params = _sketch_params(kind)
+    units = [[_seq(rng, 50_000, 0.001)], [b"A" * 9000],
+             [b"N" * 4000, _seq(rng, 3100)], [_seq(rng, 2999) + b"ACGT"],
+             [_seq(rng, 200) for _ in range(30)]]
+    scratch = ds.SlotScratch()
+    for lo in (0, 2):
+        hb = ds.plan_batch([f"u{i}" for i in range(len(units) - lo)],
+                           units[lo:], params)
+        assert hb.tile_cap <= tile + params.fragment_length - 1
+        _, _, counts, _ = _k5_check(ds.upload_batch(hb, params, cuda_device),
+                                    scratch)
+        if lo == 0:
+            assert int(counts[hb.frag_off[1]]) == 1   # the homopolymer
+    assert scratch.buffer.numel() >= hb.frag_slot[-1]
 
 
 @pytest.mark.parametrize("kind", ["genome", "contig"])
@@ -400,15 +445,24 @@ def test_device_sketch_on_card_equals_host_sketcher(cuda_device, kind):
                                           err_msg=f"{name} {f}")
 
 
-def test_k5_raises_on_a_refused_launch(cuda_device, monkeypatch):
-    """More threads a block than the card allows: the launch is refused
-    and the wrapper raises, counting no launch."""
+@pytest.mark.parametrize("refused", ["threads", "shared memory"])
+def test_k5_raises_on_a_refused_launch(cuda_device, monkeypatch, refused):
+    """More threads a block than the kernel's bound allows, or a tile
+    whose block needs more shared memory than the card has: the launch
+    is refused and the wrapper raises, counting no launch."""
     from galah_tpu_torch.ops import device_sketch as ds
 
     params = _sketch_params("contig")
-    hb = ds.plan_batch(["u"], [[b"ACGT" * 500]], params)
+    if refused == "threads":
+        monkeypatch.setattr(ds, "K5_THREADS", 2048)
+        seq = b"ACGT" * 500
+    else:
+        monkeypatch.setattr(ds, "TILE_POSITIONS", 1 << 20)
+        seq = b"ACGT" * (1 << 18)
+    hb = ds.plan_batch(["u"], [[seq]], params)
     batch = ds.upload_batch(hb, params, cuda_device)
-    monkeypatch.setattr(ds, "K5_THREADS", 2048)
+    if refused == "shared memory":
+        assert ds.k5_launch_shape(batch)[2] > 228 << 10
     before = ds.sketch_batch.launches
     with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
         ds.sketch_batch(batch)

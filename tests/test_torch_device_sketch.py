@@ -162,8 +162,9 @@ def test_small_genome_params_and_mixed_lengths():
 def test_repeat_rich_genome_has_no_overflow():
     """A homopolymer selects every one of its k-mers (mix64(0) == 0): the
     reference's selected-hash capacity overflows (it falls back to the
-    host); the port's key buffer holds one slot per start, so the batch
-    simply completes."""
+    host); in the port a fragment's list lives in its own positions, so
+    the batch simply completes, the fragment deduplicated to one
+    bucket."""
     rng = np.random.default_rng(6)
     seqs = [b"A" * 4096, _random_seq(rng, 3000) + b"ACGTTG" * 400]
     pp, jp = (dataclasses.replace(_params("medium", mod), fragment_scale=8)
@@ -206,9 +207,126 @@ def test_plan_batch_layout():
     assert hb.seq[400] == ds.SEPARATOR and hb.seq[:4].tobytes() == b"ACGT"
     starts = [403 - 14, 0, 600 - 14]
     assert hb.starts == sum(starts)
-    np.testing.assert_array_equal(
-        hb.run_off, np.cumsum([0] + [-(-s // ds.RUN_LEN) for s in starts]))
+    # One tile a non-empty unit, each holding its unit's fragments.
+    np.testing.assert_array_equal(hb.tile_unit, [0, 2])
+    np.testing.assert_array_equal(hb.tile_start, [0, 0])
+    np.testing.assert_array_equal(hb.tile_end, [403, 600])
+    np.testing.assert_array_equal(hb.tile_frag, [0, 1, 2])
+    np.testing.assert_array_equal(hb.frag_slot, [0, 400, 1000])
+    assert hb.tile_cap == 600 and hb.max_tile_frags == 1
     assert hb.bin_off[-1] == len(hb.bounds) == len(hb.bin2frag)
+
+
+def _tile_units(rng):
+    """Units for the tiling cases: shorter than k, no fragment, an all-N
+    fragment, a homopolymer fragment, many contigs, long random ones."""
+    return [
+        [b"ACG"], [b"ACGT" * 20], [b"N" * 800], [b"A" * 3000],
+        [], [_random_seq(rng, 150) for _ in range(40)],
+        [_random_seq(rng, 9000, n_prob=0.01), b"C" * 20,
+         _random_seq(rng, 2400)],
+        [_random_seq(rng, 20000)], [b""],
+    ]
+
+
+def _emulate_k5(hb, params):
+    """K5's per-fragment output computed tile by tile, as the kernel sees
+    a tile: only the bytes [tile_start, min(tile_end + k - 1, unit end))
+    of its unit, fragments looked up by frag_start/frag_end, each
+    fragment's selected buckets sorted and deduplicated."""
+    k = params.k
+    counts = np.zeros(len(hb.frag_start), np.int32)
+    buckets = [None] * len(hb.frag_start)
+    for t in range(len(hb.tile_unit)):
+        u = hb.tile_unit[t]
+        base, ulen = hb.unit_off[u], hb.unit_off[u + 1] - hb.unit_off[u]
+        ts, te = int(hb.tile_start[t]), int(hb.tile_end[t])
+        staged = hb.seq[base + ts:base + min(te + k - 1, ulen)].tobytes()
+        kmers, pos = fmh.canonical_kmers_with_positions(staged, k)
+        h = mix64(kmers)
+        sel = (h < params.fragment_threshold) & (pos < te - ts)
+        b = (h[sel] & np.uint64(params.member_bits - 1)).astype(np.int32)
+        p = pos[sel] + ts
+        for f in range(hb.tile_frag[t], hb.tile_frag[t + 1]):
+            inf = (p >= hb.frag_start[f]) & (p < hb.frag_end[f])
+            buckets[f] = np.unique(b[inf])
+            counts[f] = buckets[f].size
+    flat = np.concatenate([x for x in buckets if x is not None] or
+                          [np.zeros(0, np.int32)])
+    return counts, flat
+
+
+@pytest.mark.parametrize("tile", [ds.TILE_POSITIONS, 1000, 64])
+def test_tiles_cover_every_position_and_keep_fragments_whole(monkeypatch,
+                                                             tile):
+    """Every position of every unit lies in exactly one tile, in order; a
+    tile never splits a fragment and holds at most TILE_POSITIONS +
+    fragment_length - 1 starts; K5's view of a tile (its starts and a
+    k - 1 halo) gives each fragment the buckets of the whole-batch plain
+    version."""
+    monkeypatch.setattr(ds, "TILE_POSITIONS", tile)
+    rng = np.random.default_rng(12)
+    p = _params("medium", fmh)
+    units = _tile_units(rng)
+    hb = ds.plan_batch([f"u{i}" for i in range(len(units))], units, p)
+    ulen = np.diff(hb.unit_off)
+    covered = np.zeros(int(hb.unit_off[-1]), np.int32)
+    for u, s, e in zip(hb.tile_unit, hb.tile_start, hb.tile_end):
+        assert 0 <= s < e <= ulen[u]
+        covered[hb.unit_off[u] + s:hb.unit_off[u] + e] += 1
+    assert (covered == 1).all()
+    assert (np.diff(hb.unit_off[hb.tile_unit] + hb.tile_start) > 0).all()
+    assert hb.tile_cap <= tile + p.fragment_length - 1
+    funit = np.repeat(np.arange(len(units)), np.diff(hb.frag_off))
+    tile_of = np.repeat(np.arange(len(hb.tile_unit)), np.diff(hb.tile_frag))
+    assert len(tile_of) == len(hb.frag_start)
+    assert (hb.tile_unit[tile_of] == funit).all()
+    assert (hb.tile_start[tile_of] <= hb.frag_start).all()
+    assert (hb.frag_end <= hb.tile_end[tile_of]).all()
+    if tile == 64:   # every fragment is longer than a tile
+        assert (np.diff(hb.tile_frag) <= 1).all()
+    batch = ds.upload_batch(hb, p, CPU)
+    _, _, counts, flat = ds.sketch_batch_reference(batch)
+    want_counts, want_flat = _emulate_k5(hb, p)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(flat.numpy(), want_flat)
+    homopolymer = hb.frag_off[3]
+    assert counts[homopolymer] == 1      # every start selects one bucket
+    assert counts[hb.frag_off[2]] == 0   # the all-N fragment
+
+
+@pytest.mark.parametrize("kind,dedup", [("medium", "sort"),
+                                        ("medium", "segmented"),
+                                        ("small", "sort")])
+def test_fragment_products_match_jax_sketch_one(monkeypatch, kind, dedup):
+    """sketch_batch_reference's per-fragment counts and buckets equal the
+    JAX package's _sketch_one offsets and flat, run as its CPU tests run
+    it (the XLA scatter kernel, global-sort or segmented dedup)."""
+    monkeypatch.setenv("GALAH_TPU_SKETCH_KERNEL", "scatter")
+    monkeypatch.setenv("GALAH_TPU_SKETCH_DEDUP", dedup)
+    rng = np.random.default_rng(13)
+    units = [[_random_seq(rng, 5000, n_prob=0.003)],
+             [_random_seq(rng, 2100), _random_seq(rng, 640)],
+             [b"N" * 1200], [_random_seq(rng, 1500, lower_prob=0.5)]]
+    names = [f"u{i}" for i in range(len(units))]
+    pp, jp = _params(kind, fmh), _params(kind, jax_fmh)
+    hb = ds.plan_batch(names, units, pp)
+    _, _, counts, flat = ds.sketch_batch_reference(
+        ds.upload_batch(hb, pp, CPU))
+    _, dev = jax_ds.device_sketch_batch(names, units, jp, return_device=True)
+    offsets, jflat = np.asarray(dev["offsets"]), np.asarray(dev["flat"])
+    n_unique = np.asarray(dev["n_unique"])
+    lo = 0
+    for u in range(len(units)):
+        f0, f1 = hb.frag_off[u], hb.frag_off[u + 1]
+        np.testing.assert_array_equal(counts[f0:f1].numpy(),
+                                      np.diff(offsets[u, :f1 - f0 + 1]))
+        n = int(counts[f0:f1].sum())
+        assert n == n_unique[u]
+        np.testing.assert_array_equal(flat[lo:lo + n].numpy(),
+                                      jflat[u, :n])
+        lo += n
+    assert lo == flat.numel() > 1000
 
 
 def test_batches_respect_bytes_and_unit_cap(monkeypatch):

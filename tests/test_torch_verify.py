@@ -137,10 +137,10 @@ def test_one_to_many_matches_jax(corpus, port_sketches, monkeypatch):
     np.testing.assert_array_equal(got[1], want[1])
 
 
-def _bidirectional(eng, table, pairs, sk, registry):
+def _bidirectional(eng, table, pairs, sk, registry, max_flat=SMALL_FLAT):
     """Results and (pair-table, grouped) directed-pair counts, read from
     `registry`: the metrics module of the package that `eng` is from."""
-    table.cfg = dataclasses.replace(table.cfg, max_flat_hashes=SMALL_FLAT)
+    table.cfg = dataclasses.replace(table.cfg, max_flat_hashes=max_flat)
     registry.reset()
     out = eng.bidirectional(pairs, sk)
     c = registry.current().counters
@@ -172,6 +172,56 @@ def test_bidirectional_matches_jax_with_routing(
 
     fam = [(a, b) for a, b in pairs if family(a) == family(b)]
     assert all(got[p][0] > 95.0 for p in fam)
+
+
+@pytest.mark.parametrize("mode", ["pairtable", "grouped", None])
+def test_bidirectional_verify_mode_matches_jax(
+    corpus, port_sketches, monkeypatch, mode
+):
+    """GALAH_TPU_VERIFY forces one kernel for every directed pair, as in
+    the JAX package; unset, pairs route by stream length. The large
+    genomes' streams lie between max_flat_hashes // 8 and
+    max_flat_hashes, so under pairtable the pair table plans them."""
+    small, large, params, sk = corpus
+    units = small[:6] + large
+    pairs = [(a, b) for i, a in enumerate(units) for b in units[i + 1:]]
+    streams = [len(sk[p].frag_buckets) for p in large]
+    assert SMALL_FLAT // 8 < min(streams) and max(streams) <= SMALL_FLAT
+    if mode is None:
+        monkeypatch.delenv("GALAH_TPU_VERIFY", raising=False)
+    else:
+        monkeypatch.setenv("GALAH_TPU_VERIFY", mode)
+    jeng, peng = _engines(params, monkeypatch)
+    want, want_routes = _bidirectional(jeng, jeng._pair_table(), pairs, sk,
+                                       jax_metrics)
+    got, got_routes = _bidirectional(peng, peng.pair_table, pairs,
+                                     port_sketches, metrics)
+    assert got_routes == want_routes
+    n_small = 6 * 5 // 2
+    expect = {"pairtable": (2 * len(pairs), 0),
+              "grouped": (0, 2 * len(pairs)),
+              None: (2 * n_small, 2 * (len(pairs) - n_small))}[mode]
+    assert got_routes == expect
+    _assert_close(got, want)
+
+
+def test_forced_pair_table_refuses_an_oversized_stream_like_jax(
+    corpus, port_sketches, monkeypatch
+):
+    """Under GALAH_TPU_VERIFY=pairtable a stream over max_flat_hashes
+    raises the pair table's ValueError in both packages."""
+    small, large, params, sk = corpus
+    pairs = [(small[0], large[0])]
+    max_flat = len(sk[large[0]].frag_buckets) - 1
+    assert len(sk[small[0]].frag_buckets) <= max_flat
+    monkeypatch.setenv("GALAH_TPU_VERIFY", "pairtable")
+    jeng, peng = _engines(params, monkeypatch)
+    with pytest.raises(ValueError, match="source stream too large"):
+        _bidirectional(jeng, jeng._pair_table(), pairs, sk, jax_metrics,
+                       max_flat)
+    with pytest.raises(ValueError, match="source stream too large"):
+        _bidirectional(peng, peng.pair_table, pairs, port_sketches, metrics,
+                       max_flat)
 
 
 def test_low_memory_engine_matches_default(corpus, monkeypatch):
