@@ -22,8 +22,11 @@ exits non-zero):
    gather: the gather probe's entry point (galah_tpu_torch.tools.
    gather_probe.run_probe) at the reference probe's shape (2^17 indices
    into a 4 MiB table) and at a 256 MiB table, K3 at unroll 1, 4 and 8
-   and K4 at 8, 16 and 32, with index_select timed beside them; then each
-   setting of both kernels against the plain version, bit-exact;
+   and K4 at 8, 16 and 32, with index_select timed beside them and the
+   previous design's time; then each setting of both kernels against the
+   plain version, bit-exact; then the probe's index patterns of the
+   256 MiB table (run_patterns: random, sorted, grouped by tile, strided,
+   every row, and a torch read of the table);
 4. sketch kernel: K5 (hash, select and per-fragment dedup,
    csrc/device_sketch.cu) against sketch_batch_reference on the card,
    bit-exact (bitmaps, per-fragment counts and buckets), on 8 genomes
@@ -122,9 +125,12 @@ K2_SHAPES = ((1024, 1024, 4096), (2048, 2048, 4096), (2048, 2048, 8192),
 # The shape whose times go into the kernels' JSON line, and for the
 # gather kernels the unroll (the one both run).
 K12_SUMMARY_SHAPE = (1024, 1024, 4096)
-# ms of the previous design of each count kernel (the integer-ALU __popc
-# kernels), NVIDIA H100 80GB HBM3 at 700 W, from this script's kernel
-# phase before the tensor-core redesign; printed beside the new times.
+# ms of the previous design of each kernel, NVIDIA H100 80GB HBM3 at
+# 700 W, printed beside the new times: the count kernels' integer-ALU
+# __popc design, from this script's kernel phase before the tensor-core
+# redesign; the gather kernels' two-waves grid with __ldg rows and an
+# index load a lane, from tools/gather_probe.py before their redesign, by
+# (kernel, shape name, unroll).
 PREVIOUS_MS = {
     ("K1", (1024, 1024, 8192)): 2.4669,
     ("K1", (1024, 1024, 4096)): 1.2169,
@@ -133,16 +139,29 @@ PREVIOUS_MS = {
     ("K2", (1024, 1024, 4096)): 1.1995,
     ("K2", (2048, 2048, 4096)): 4.7731,
     ("K2", (2048, 2048, 8192)): 9.5979,
+    ("gather_xor", "reference", 1): 0.0039,
+    ("gather_xor", "reference", 4): 0.0036,
+    ("gather_xor", "reference", 8): 0.0044,
+    ("gather_xor_chains", "reference", 8): 0.0048,
+    ("gather_xor_chains", "reference", 16): 0.0065,
+    ("gather_xor_chains", "reference", 32): 0.0110,
+    ("gather_xor", "larger-than-L2", 1): 0.1317,
+    ("gather_xor", "larger-than-L2", 4): 0.1303,
+    ("gather_xor", "larger-than-L2", 8): 0.1300,
+    ("gather_xor_chains", "larger-than-L2", 8): 0.1311,
+    ("gather_xor_chains", "larger-than-L2", 16): 0.1418,
+    ("gather_xor_chains", "larger-than-L2", 32): 0.1923,
 }
 GATHER_SUMMARY_UNROLL = 8
 GATHER_SEED = 0
 GATHER_ITERS = 50
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM
-# bytes/s, int8 tensor-core operations/s, float32 operations/s outside
-# the tensor cores (the gather kernels' XORs).
+# bytes/s, int8 tensor-core operations/s; and the integer ALU pipe's
+# 32-bit operations/s (the gather kernels' XORs, one LOP3 a word): 64
+# lanes a clock an SM, 132 SMs, 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
-FP32_OPS_PER_S = 67e12
+INT_ALU_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def log(phase: str, msg: str) -> None:
@@ -413,9 +432,12 @@ def phase_gather() -> dict:
         check(n > 0, f"{name} was never launched by the probe")
     for r in results:
         unroll = "" if r["unroll"] is None else f" unroll={r['unroll']}"
+        previous = PREVIOUS_MS.get((r["kernel"], r["shape"], r["unroll"]))
+        before = ("" if previous is None
+                  else f" (previous design {previous:.4f})")
         log("gather", f"{r['shape']} ({r['rows']} x 8 table, {r['indices']} "
-                      f"indices) {r['kernel']}{unroll}: {r['ms']:.4f} ms, "
-                      f"{r['indices_per_s'] / 1e6:.1f}M idx/s")
+                      f"indices) {r['kernel']}{unroll}: {r['ms']:.4f} ms"
+                      f"{before}, {r['indices_per_s'] / 1e6:.1f}M idx/s")
 
     errs = {k: 0 for k in wrappers}
     bounds = {}
@@ -437,12 +459,18 @@ def phase_gather() -> dict:
         distinct = int(torch.unique(idx).numel())
         bounds[shape.name] = _bound_ms(
             idx.numel() * 4 + distinct * 32 + 32, idx.numel() * 8,
-            FP32_OPS_PER_S)
+            INT_ALU_OPS_PER_S)
         log("gather", f"{shape.name}: every unroll of both kernels bit-exact; "
                       f"{distinct} distinct rows, bound "
                       f"{bounds[shape.name][0]:.5f} ms by "
                       f"{bounds[shape.name][1]}")
         del idx, table
+
+    t0 = time.perf_counter()
+    for r in probe.run_patterns(probe.LARGE, seed=GATHER_SEED,
+                                iters=GATHER_ITERS, device=dev):
+        log("gather", "pattern: " + probe.describe(r))
+    log("gather", f"patterns ran in {time.perf_counter() - t0:.1f} s")
 
     def at(kernel, unroll=None):
         return next(r["ms"] for r in results

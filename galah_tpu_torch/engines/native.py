@@ -425,7 +425,8 @@ class NativeContext:
 
         bases = 0
         for idx, sketches, dev in iter_device_sketch_files(
-                missing, self.params, self.device, threads=self.threads):
+                missing, self.params, self.device, threads=self.threads,
+                low_memory=self.low_memory):
             names = [missing[i] for i in idx]
             self._adopt(names, sketches, dev)
             for p, sk in zip(names, sketches):
@@ -491,7 +492,7 @@ class NativeContext:
 
         for path, sketches in zip(missing, device_sketch_contig_files(
                 missing, self.params, self.device, threads=self.threads,
-                on_batch=self._adopt)):
+                low_memory=self.low_memory, on_batch=self._adopt)):
             self._contig_store[path] = sketches
 
 

@@ -619,8 +619,11 @@ class _Clock:
             self.marks.append(time.perf_counter())
 
     def seconds(self) -> List[float]:
-        """Seconds between consecutive marks."""
+        """Seconds between consecutive marks. On a card it waits for the
+        last mark: one recorded after the batch's host copy may not have
+        completed yet, and elapsed_time refuses such an event."""
         if self.cuda:
+            self.marks[-1].synchronize()
             return [a.elapsed_time(b) / 1e3
                     for a, b in zip(self.marks, self.marks[1:])]
         return [b - a for a, b in zip(self.marks, self.marks[1:])]
@@ -792,14 +795,54 @@ class _OpenFiles:
     kept), so the read pass finds most files the length pass parsed: a
     many-contig FASTA is parsed once. Where the reference kept forward
     read cursors on a streaming parser (galah_tpu/ops/device_sketch.py:
-    1179-1228), the C++ reader's parse gives random access."""
+    1179-1228), the C++ reader's parse gives random access.
 
-    def __init__(self, paths: Sequence[str]) -> None:
+    Under low memory the length pass keeps only the newest parse, as the
+    reference's one-file-at-a-time length pass (galah_tpu/ops/
+    device_sketch.py:1638-1648), and `plan` keeps it only if the first
+    batch reads its file; the read pass drops a parse once the last
+    batch that reads its file (`plan`) has read it. So each file is
+    parsed at most twice (a lone contig FASTA once), and host memory
+    holds the files of the batch being read plus those an earlier batch
+    read that a later one still needs. A genome file is read by one
+    batch, so that is the batch's files. `held` and `peak` are the bytes
+    of the parses kept, now and at most."""
+
+    def __init__(self, paths: Sequence[str], low_memory: bool = False) -> None:
         self._paths = paths
+        self._low_memory = low_memory
+        self._budget = 0 if low_memory else OPEN_FILE_BYTES
         self._lru: "OrderedDict[int, _FastaSource]" = OrderedDict()
-        self._bytes = 0
         self._lock = threading.Lock()
+        self._uses: List[List[int]] = []
+        self._last: Dict[int, int] = {}
         self.parsed = 0
+        self.held = 0
+        self.peak = 0
+
+    def _drop(self, keep) -> None:
+        with self._lock:
+            for i in [i for i in self._lru if not keep(i)]:
+                self.held -= self._lru.pop(i).nbytes
+
+    def plan(self, uses: Sequence[Sequence[int]]) -> None:
+        """The files each batch reads, in the order batches are read."""
+        self._uses = [list(u) for u in uses]
+        self._last = {i: ci for ci, u in enumerate(self._uses) for i in u}
+        if self._low_memory:
+            first = set(self._uses[0]) if self._uses else set()
+            self._drop(first.__contains__)
+            self._budget = float("inf")  # released by last use instead
+
+    def batch(self, ci: int,
+              ex: Optional[ThreadPoolExecutor] = None) -> List[_FastaSource]:
+        """The parses of batch ci's files (`plan`), for its read (`ex`'s
+        threads parse them when given); under low memory those whose
+        file no later batch reads are dropped from the cache."""
+        srcs = list((ex.map if ex else map)(self.get, self._uses[ci]))
+        if self._low_memory:
+            self._drop(lambda i: self._last.get(i) != ci)
+        return srcs
 
     def get(self, i: int) -> _FastaSource:
         with self._lock:
@@ -811,10 +854,11 @@ class _OpenFiles:
         with self._lock:
             self.parsed += 1
             self._lru[i] = src
-            self._bytes += src.nbytes
-            while self._bytes > OPEN_FILE_BYTES and len(self._lru) > 1:
+            self.held += src.nbytes
+            self.peak = max(self.peak, self.held)
+            while self.held > self._budget and len(self._lru) > 1:
                 _, old = self._lru.popitem(last=False)
-                self._bytes -= old.nbytes
+                self.held -= old.nbytes
         return src
 
 
@@ -872,15 +916,16 @@ def _pipelined(n: int, read, process) -> Iterator:
 
 def iter_device_sketch_files(
     paths: Sequence[str], params: NativeSketchParams, device: torch.device,
-    *, threads: int = 1,
+    *, threads: int = 1, low_memory: bool = False,
 ) -> Iterator[Tuple[List[int], List[NativeSketch], Dict[str, torch.Tensor]]]:
     """Sketch whole genome files on `device`, batch by batch: yields
     (indices into `paths`, their sketches, the batch's device-born
     bitmaps). Pass 1 parses each file for its length and buckets the
     files by padded length; pass 2 reads each batch's files (`threads` at
-    a time) one batch ahead of the device."""
+    a time) one batch ahead of the device. With low_memory no parse is
+    kept beyond the batch that reads it (_OpenFiles)."""
     _check_params(params)
-    files = _OpenFiles(paths)
+    files = _OpenFiles(paths, low_memory)
     with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
         t0 = time.perf_counter()
         lengths = _length_pass(
@@ -891,10 +936,11 @@ def iter_device_sketch_files(
             buckets.setdefault(_next_pow2(max(total, params.k)), []).append(i)
         chunks = _chunks(buckets, GENOME_BATCH_BYTES[device.type], params,
                          device)
+        files.plan(chunks)
 
         def read(ci: int) -> HostBatch:
             t0 = time.perf_counter()
-            srcs = list(ex.map(files.get, chunks[ci]))
+            srcs = files.batch(ci, ex)
             return _read_batch(
                 [paths[i] for i in chunks[ci]],
                 [[(src, j) for j in range(len(src.lengths))] for src in srcs],
@@ -922,7 +968,7 @@ def device_sketch_files(
 
 def iter_device_sketch_contig_files(
     paths: Sequence[str], params: NativeSketchParams, device: torch.device,
-    *, threads: int = 1,
+    *, threads: int = 1, low_memory: bool = False,
 ) -> Iterator[Tuple[List[Tuple[int, int]], List[NativeSketch],
                     Dict[str, torch.Tensor]]]:
     """One sketch per contig on `device`, batch by batch: yields ((file,
@@ -930,9 +976,10 @@ def iter_device_sketch_contig_files(
     Contigs are bucketed by padded length across the whole corpus; pass 1
     parses the files for their contigs' lengths, pass 2 reads each batch
     from the parsed files, one batch ahead of the device. Names follow
-    the tab-split rule."""
+    the tab-split rule. With low_memory a parse is dropped after the
+    last batch that reads its file (_OpenFiles)."""
     _check_params(params)
-    files = _OpenFiles(paths)
+    files = _OpenFiles(paths, low_memory)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
         per_file = _length_pass(ex, lambda i: files.get(i).lengths,
@@ -943,11 +990,13 @@ def iter_device_sketch_contig_files(
         for cj, n in enumerate(lens):
             buckets.setdefault(_next_pow2(max(n, params.k)), []).append((pi, cj))
     chunks = _chunks(buckets, CONTIG_BATCH_BYTES[device.type], params, device)
+    files.plan([dict.fromkeys(pi for pi, _ in c) for c in chunks])
 
     def read(ci: int) -> HostBatch:
         t0 = time.perf_counter()
         items = chunks[ci]
-        srcs = {pi: files.get(pi) for pi in dict.fromkeys(pi for pi, _ in items)}
+        srcs = dict(zip(dict.fromkeys(pi for pi, _ in items),
+                        files.batch(ci)))
         names = [srcs[pi].name(cj).split("\t")[0] for pi, cj in items]
         return _read_batch(names, [[(srcs[pi], cj)] for pi, cj in items],
                            params, t0)

@@ -11,7 +11,8 @@ for int32 indices idx (NS,) and a (WT, 8) table of uint32 words held in
 an int32 tensor (utils/convert.py), out (1, 8) int32. XOR is associative
 and commutative, so every order gives the same bits: the kernels match
 the plain version bit for bit. On a CUDA tensor they run in the
-hand-written kernels of csrc/gather_probe.cu; on a CPU tensor in
+hand-written kernel of csrc/gather_probe.cu, one kernel for both on the
+card (its head note says why); on a CPU tensor in
 `gather_xor_reference`.
 """
 
@@ -107,16 +108,15 @@ def _launch(entry: str, wrapper, idx: torch.Tensor, table: torch.Tensor,
 
 def gather_xor(idx: torch.Tensor, table: torch.Tensor,
                unroll: int = 1) -> torch.Tensor:
-    """(1, 8) int32 XOR of the indexed rows, one accumulator per thread
-    and `unroll` index loads per step (K3). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    """(1, 8) int32 XOR of the indexed rows (K3), `unroll` 16-byte row
+    loads in flight a thread. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises."""
     return _launch("galah_gather_xor", gather_xor, idx, table, unroll)
 
 
 def gather_xor_chains(idx: torch.Tensor, table: torch.Tensor,
                       unroll: int = 8) -> torch.Tensor:
-    """As gather_xor, with `unroll` independent accumulators per thread
-    (K4)."""
+    """As gather_xor (K4: the same kernel on the card)."""
     return _launch("galah_gather_xor_chains", gather_xor_chains, idx, table,
                    unroll)
 

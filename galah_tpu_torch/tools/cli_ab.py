@@ -2,6 +2,7 @@
 
     python -m galah_tpu_torch.tools.cli_ab OLD_TREE NEW_TREE
         [--corpus contigs|main] [--order ABBA] [--out DIR] [--platform gpu]
+        [--low-memory]
 
 A tree is a checkout of the repo (its root holds galah_tpu_torch/). A run
 is `python -m galah_tpu_torch cluster` in a fresh process started in that
@@ -14,10 +15,12 @@ genome corpus (128 families of 8 genomes of 1 Mb at 98% ANI, seed 11);
 --families, --members and --length shrink them. --order names the runs,
 A for the first tree and B for the second: ABBA runs each tree at both
 ends of the call, so a drift of the machine over the call shows as the
-difference between one tree's two runs.
+difference between one tree's two runs. --low-memory passes the CLI's
+flag of that name to every run.
 
-Prints a JSON line a run (the process's wall, and from --metrics-json the
-CLI's wall, phases, every sketch_*_s span and the work counters), the
+Prints a JSON line a run (the process's wall and peak resident set, from
+wait4's rusage, and from --metrics-json the CLI's wall, phases, every
+sketch_*_s span and the work counters), the
 card's name and power limit on a card, and a last JSON line with each
 tree's medians; exits 1 unless every run wrote the same clusters.tsv and
 counted the same work.
@@ -72,22 +75,36 @@ def build_kernels(tree: str) -> None:
                    env=_env(tree, "gpu"), cwd=tree, check=True)
 
 
+def _run_measured(cmd: List[str], env: Dict[str, str], cwd: str) -> int:
+    """Run `cmd` to its end; returns its peak resident set in bytes (the
+    child's own, from wait4). Raises if it fails."""
+    proc = subprocess.Popen(cmd, env=env, cwd=cwd)
+    _, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    if proc.returncode:
+        raise subprocess.CalledProcessError(proc.returncode, cmd)
+    return usage.ru_maxrss * 1024  # KiB on Linux
+
+
 def run_cli(tree: str, inputs: List[str], out: str, tag: str,
-            platform: str) -> dict:
-    """One `cluster` run of `tree`'s port in a fresh process."""
+            platform: str, flags: List[str] = ()) -> dict:
+    """One `cluster` run of `tree`'s port in a fresh process, with the
+    CLI flags `flags`."""
     tsv = os.path.join(out, f"{tag}.tsv")
     mjson = os.path.join(out, f"{tag}.json")
     tree = os.path.abspath(tree)
     cmd = [sys.executable, "-m", "galah_tpu_torch", "cluster", *inputs,
            "--ani", "95", "-t", str(min(8, os.cpu_count() or 1)),
-           "--output-cluster-definition", tsv, "--metrics-json", mjson, "-q"]
+           "--output-cluster-definition", tsv, "--metrics-json", mjson, "-q",
+           *flags]
     t0 = time.perf_counter()
-    subprocess.run(cmd, env=_env(tree, platform), cwd=tree, check=True)
+    rss = _run_measured(cmd, _env(tree, platform), tree)
     wall = time.perf_counter() - t0
     with open(mjson) as f:
         m = json.load(f)
     c = m["counters"]
     return {"run": tag, "tree": tree, "process_wall_s": wall,
+            "peak_rss_bytes": rss,
             "wall_clock_s": m["wall_clock_s"], "phases_s": m["phases_s"],
             "sketch_s": {k[7:-2]: v for k, v in sorted(c.items())
                          if k.startswith("sketch_") and k.endswith("_s")},
@@ -102,6 +119,7 @@ def medians(runs: List[dict]) -> dict:
         return statistics.median(vals) if vals else None
 
     return {"runs": len(runs), "process_wall_s": med("process_wall_s"),
+            "peak_rss_bytes": med("peak_rss_bytes"),
             "wall_clock_s": med("wall_clock_s"),
             **{f"{key}.{sub}": med(key, sub)
                for key in ("phases_s", "sketch_s")
@@ -118,6 +136,8 @@ def main(argv=None) -> int:
     ap.add_argument("--families", type=int)
     ap.add_argument("--members", type=int)
     ap.add_argument("--length", type=int)
+    ap.add_argument("--low-memory", action="store_true",
+                    help="run the CLI with --low-memory")
     args = ap.parse_args(argv)
     families, members, length, seed = CORPORA[args.corpus]
     out = os.path.abspath(args.out)
@@ -133,7 +153,8 @@ def main(argv=None) -> int:
     runs = []
     for i, letter in enumerate(args.order):
         tree = args.trees["AB".index(letter)]
-        runs.append(run_cli(tree, inputs, out, f"{i}{letter}", args.platform))
+        runs.append(run_cli(tree, inputs, out, f"{i}{letter}", args.platform,
+                            ["--low-memory"] if args.low_memory else []))
         print(json.dumps(runs[-1]), flush=True)
     tsvs = set()
     for r in runs:
@@ -147,6 +168,7 @@ def main(argv=None) -> int:
             check=True, timeout=60).stdout.strip())
     print(json.dumps({
         "ok": same, "corpus": args.corpus, "order": args.order,
+        "low_memory": args.low_memory,
         "trees": [os.path.abspath(t) for t in args.trees],
         "medians": {letter: medians([r for r in runs
                                      if r["run"][-1] == letter])

@@ -2,7 +2,7 @@
 by random indices? (counterpart of benchmarks/pallas_gather_probe.py,
 `main`).
 
-    python -m galah_tpu_torch.tools.gather_probe            # on the card
+    python -m galah_tpu_torch.tools.gather_probe [--patterns]    # on the card
     GALAH_TPU_PLATFORM=cpu python -m galah_tpu_torch.tools.gather_probe
 
 The rate sizes the word gathers of the verify programs
@@ -14,18 +14,21 @@ The rate sizes the word gathers of the verify programs
 - a table larger than L2: 2^23 rows (256 MiB) and 2^22 indices, whose
   random rows come from device memory.
 
-For each, K3 (`gather_xor`, one accumulator) runs at unroll 1, 4 and 8
-and K4 (`gather_xor_chains`, independent accumulators) at 8, 16 and 32.
-Each result is checked bit for bit against the plain version, and
-`torch.index_select(table, 0, idx)`, the counterpart of the reference
-probe's XLA gather, is timed beside them. Inputs come from a seeded
-torch.Generator on the device. Times are CUDA-event means over
-`--iters` calls captured in a CUDA graph, so the host's Python work per
-wrapper call, longer than the kernel at the reference shape, does not
-hide the device time (time_ms); on the CPU (asked
-for with GALAH_TPU_PLATFORM=cpu) the kernels' plain versions run and
-the times are host-clock means, not device times. One line per setting,
-then one JSON object with every result.
+For each, K3 (`gather_xor`) runs at unroll 1, 4 and 8 and K4
+(`gather_xor_chains`) at 8, 16 and 32. Each result is checked bit for
+bit against the plain version, and `torch.index_select(table, 0, idx)`,
+the counterpart of the reference probe's XLA gather, is timed beside
+them. With --patterns both kernels also run over index patterns of the
+larger table (run_patterns): the random indices, sorted, grouped by
+tile of TILE_ROWS rows, at a stride, and every row once, with a read of
+the whole table by torch beside them. Inputs come from a
+seeded torch.Generator on the device. Times are CUDA-event means
+over `--iters` calls captured in a CUDA graph, so the host's Python work
+per wrapper call, longer than the kernel at the reference shape, does
+not hide the device time (time_ms); on the CPU (asked for with
+GALAH_TPU_PLATFORM=cpu) the kernels' plain versions run and the times
+are host-clock means, not device times. One line per setting, then one
+JSON object with every result.
 """
 
 from __future__ import annotations
@@ -63,6 +66,8 @@ KERNELS = (
     ("gather_xor", gather_xor, (1, 4, 8)),
     ("gather_xor_chains", gather_xor_chains, (8, 16, 32)),
 )
+# Rows of a tile of the `grouped` pattern (112 KiB).
+TILE_ROWS = 3584
 
 
 def make_inputs(shape: Shape, seed: int, device: torch.device):
@@ -147,6 +152,75 @@ def run_probe(shapes=SHAPES, seed: int = 0, iters: int = 50,
     return results
 
 
+# Index patterns of the larger-than-L2 table, inputs to the same kernels:
+# the random indices, the same sorted, the same grouped by tile (stably),
+# NS indices at a stride of WT // NS, and every row once in order (a
+# stream of the whole table).
+PATTERNS = ("random", "sorted", "grouped", "sequential", "full")
+
+
+def pattern_indices(pattern: str, idx: torch.Tensor,
+                    rows: int) -> torch.Tensor:
+    """The indices of `pattern`, from the random indices `idx` into a
+    table of `rows` rows."""
+    if pattern == "random":
+        return idx
+    if pattern == "sorted":
+        return idx.sort().values
+    if pattern == "grouped":
+        return idx[torch.argsort(idx.long() // TILE_ROWS, stable=True)]
+    if pattern == "sequential":
+        step = max(1, rows // idx.numel())
+        return torch.arange(0, idx.numel() * step, step, dtype=torch.int32,
+                            device=idx.device)
+    if pattern == "full":
+        return torch.arange(rows, dtype=torch.int32, device=idx.device)
+    raise ValueError(f"unknown pattern {pattern!r}")
+
+
+def run_patterns(shape: Shape = None, seed: int = 0, iters: int = 50,
+                 device: torch.device | None = None) -> List[dict]:
+    """Both kernels at each of their unrolls over each of PATTERNS at
+    `shape` (default LARGE), each checked bit for bit against the plain
+    version; then a read of the whole table by torch
+    (`table.sum()`). One result per setting."""
+    shape = LARGE if shape is None else shape
+    device = resolve_device() if device is None else device
+    idx, table = make_inputs(shape, seed, device)
+    results = []
+
+    def record(pattern, kernel, unroll, n, ms, **extra):
+        results.append({
+            "shape": shape.name, "rows": shape.rows, "indices": n,
+            "pattern": pattern, "kernel": kernel, "unroll": unroll, "ms": ms,
+            "indices_per_s": n / (ms * 1e-3), **extra})
+
+    for pattern in PATTERNS:
+        pidx = pattern_indices(pattern, idx, shape.rows)
+        want = gather_xor_reference(pidx, table)
+        for name, fn, unrolls in KERNELS:
+            for unroll in unrolls:
+                if not torch.equal(fn(pidx, table, unroll), want):
+                    raise RuntimeError(
+                        f"{name} unroll={unroll} differs from the plain "
+                        f"version on the {pattern} pattern")
+                record(pattern, name, unroll, pidx.numel(), time_ms(
+                    lambda: fn(pidx, table, unroll), device, iters))
+    ms = time_ms(lambda: table.sum(), device, iters)
+    record("full", "table_sum", None, shape.rows, ms,
+           bytes_per_s=table.numel() * 4 / (ms * 1e-3))
+    return results
+
+
+def describe(r: dict) -> str:
+    """One result as a line."""
+    unroll = "" if r["unroll"] is None else f" unroll={r['unroll']}"
+    pattern = f" {r['pattern']}" if "pattern" in r else ""
+    return (f"{r['shape']} ({r['rows']} rows, {r['indices']} indices)"
+            f"{pattern} {r['kernel']}{unroll}: "
+            f"{r['indices_per_s'] / 1e6:.1f}M idx/s ({r['ms']:.4f} ms)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m galah_tpu_torch.tools.gather_probe",
@@ -156,6 +230,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--iters", type=int, default=50,
                         help="timed calls per setting [default: 50]")
+    parser.add_argument("--patterns", action="store_true",
+                        help="also run the index patterns of the "
+                             "larger-than-L2 table (run_patterns)")
     args = parser.parse_args(argv)
     device = resolve_device()
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -163,11 +240,11 @@ def main(argv=None) -> int:
     print(f"device: {where}", flush=True)
     results = run_probe(SHAPES, seed=args.seed, iters=args.iters,
                         device=device)
+    if args.patterns:
+        results += run_patterns(LARGE, seed=args.seed, iters=args.iters,
+                                device=device)
     for r in results:
-        unroll = "" if r["unroll"] is None else f" unroll={r['unroll']}"
-        print(f"{r['shape']} ({r['rows']} rows, {r['indices']} indices) "
-              f"{r['kernel']}{unroll}: {r['indices_per_s'] / 1e6:.1f}M idx/s "
-              f"({r['ms']:.4f} ms)", flush=True)
+        print(describe(r), flush=True)
     print(json.dumps({"device": where, "results": results}))
     return 0
 

@@ -103,6 +103,88 @@ def test_gather_kernels_match_plain_version(cuda_device, kernel, unroll, rows,
     assert torch.equal(got, gp.gather_xor_reference(idx, table))
 
 
+def _gather_case(case, gen, device):
+    """(idx, table) of one edge of the gather kernel: no index, one, an
+    odd count, every index in one 112 KiB stretch of rows, the last row,
+    a table whose rows are no multiple of the warp's 32, and a table
+    view at a 16-byte offset."""
+    from galah_tpu_torch.ops import gather_probe as gp
+
+    stretch = 3584
+    wt, ns = {"ns0": (1000, 0), "ns1": (1, 1), "odd": (4000, 4097),
+              "one stretch": (3 * stretch + 100, 12_001),
+              "last row": (2 * stretch + 1, 9_001),
+              "ragged": (5 * stretch + 77, 70_001),
+              "offset view": (3000, 5_555)}[case]
+    idx = torch.randint(0, wt, (ns,), generator=gen, dtype=torch.int32,
+                        device=device)
+    if case == "one stretch":
+        idx = idx % stretch + stretch
+    elif case == "last row":
+        idx[::7] = wt - 1
+    words = _random_words(gen, (wt + 1, gp.ROW_WORDS), device).reshape(-1)
+    if case == "offset view":
+        table = words[4:4 + wt * gp.ROW_WORDS].view(wt, gp.ROW_WORDS)
+        assert table.data_ptr() % 32 == 16
+    else:
+        table = words[:wt * gp.ROW_WORDS].view(wt, gp.ROW_WORDS)
+    return idx, table
+
+
+@pytest.mark.parametrize("case", ["ns0", "ns1", "odd", "one stretch",
+                                  "last row", "ragged", "offset view"])
+@pytest.mark.parametrize("kernel", ["gather_xor", "gather_xor_chains"])
+def test_gather_kernels_at_their_edges(cuda_device, kernel, case):
+    """Both entry points at every unroll, bit-exact against the plain
+    version; one launch a call (none for NS = 0)."""
+    from galah_tpu_torch.ops import gather_probe as gp
+
+    fn = getattr(gp, kernel)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(len(case))
+    idx, table = _gather_case(case, gen, cuda_device)
+    want = gp.gather_xor_reference(idx, table)
+    for unroll in gp.UNROLLS:
+        before = fn.launches
+        got = fn(idx, table, unroll)
+        torch.cuda.synchronize()
+        assert fn.launches == before + int(idx.numel() > 0)
+        assert got.shape == (1, gp.ROW_WORDS)
+        assert torch.equal(got, want), unroll
+
+
+@pytest.mark.parametrize("kernel", ["gather_xor", "gather_xor_chains"])
+def test_gather_index_out_of_range_raises(cuda_device, kernel):
+    """An index past the table traps in the kernel and the caller sees a
+    CUDA error. In a child process: a trap leaves its CUDA context
+    unusable."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import torch\n"
+        "from galah_tpu_torch.ops import gather_probe as gp\n"
+        "idx = torch.randint(0, 5000, (6000,), dtype=torch.int32, "
+        "device='cuda')\n"
+        "idx[4321] = 5000\n"
+        "table = torch.ones((5000, 8), dtype=torch.int32, device='cuda')\n"
+        "try:\n"
+        f"    gp.{kernel}(idx, table, 8)\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', str(e).splitlines()[0])\n"
+        "else:\n"
+        "    print('no error')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=repo, env=env)
+    assert "raised:" in done.stdout, done.stdout + done.stderr
+
+
 def test_kernel_reads_row_slices_of_a_resident_matrix(cuda_device):
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(3)
@@ -443,6 +525,22 @@ def test_device_sketch_on_card_equals_host_sketcher(cuda_device, kind):
                   "frag_buckets"):
             np.testing.assert_array_equal(getattr(g, f), getattr(want, f),
                                           err_msg=f"{name} {f}")
+
+
+def test_sketch_clock_waits_for_its_last_mark(cuda_device):
+    """The sketch's split reads CUDA events; its last mark may still be
+    queued behind work when the split is read, and elapsed_time refuses
+    an event that has not completed."""
+    from galah_tpu_torch.ops.device_sketch import _Clock
+
+    clock = _Clock(cuda_device)
+    clock.mark()
+    x = torch.ones((4096, 4096), device=cuda_device)
+    for _ in range(8):
+        x = x @ x / 4096
+    clock.mark()
+    (seconds,) = clock.seconds()
+    assert seconds > 0
 
 
 @pytest.mark.parametrize("refused", ["threads", "shared memory"])

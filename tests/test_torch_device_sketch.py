@@ -454,6 +454,92 @@ def test_open_files_parse_once_within_their_budget(tmp_path, monkeypatch,
     assert files.parsed == 4
 
 
+@pytest.mark.parametrize("contigs", [False, True])
+def test_low_memory_keeps_no_parse_beyond_the_batch(tmp_path, monkeypatch,
+                                                    contigs):
+    """With low_memory the parses _OpenFiles holds never exceed two
+    consecutive files of the length pass, nor, at any batch, the files
+    from the first batch that reads them to the last (a genome file's
+    one batch; the default mode keeps every file of this corpus), each
+    file is parsed at most twice, and the sketches are bit-identical to
+    the default mode's and to the host sketcher's."""
+    rng = np.random.default_rng(12)
+    kind = "small" if contigs else "medium"
+    pp = _params(kind, fmh)
+    lens = [(3000, 1200), (2500,), (900, 2100, 1500), (3300,), (1800, 700)]
+    paths = [_write_fasta(tmp_path / f"g{i}.fna",
+                          [(f"g{i}_c{j}", _random_seq(rng, n, n_prob=0.002))
+                           for j, n in enumerate(ls)])
+             for i, ls in enumerate(lens)]
+    sizes = [sum(ls) for ls in lens]
+    opened = []
+
+    class Recorded(ds._OpenFiles):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            opened.append(self)
+
+    monkeypatch.setattr(ds, "_OpenFiles", Recorded)
+    monkeypatch.setitem(ds.GENOME_BATCH_BYTES, "cpu", 9000)
+    monkeypatch.setitem(ds.CONTIG_BATCH_BYTES, "cpu", 5000)
+    if contigs:
+        run = ds.iter_device_sketch_contig_files
+        files_of = lambda items: {pi for pi, _ in items}  # noqa: E731
+    else:
+        run = ds.iter_device_sketch_files
+        files_of = set
+    default = {sk.name: sk for _, sks, _ in run(paths, pp, CPU)
+               for sk in sks}
+    batches, low = [], {}
+    for items, sks, _ in run(paths, pp, CPU, low_memory=True):
+        batches.append(files_of(items))
+        low.update((sk.name, sk) for sk in sks)
+    full, lean = opened
+    first, last = {}, {}
+    for ci, b in enumerate(batches):
+        for i in b:
+            first.setdefault(i, ci)
+            last[i] = ci
+    largest = max(
+        max(a + b for a, b in zip(sizes, sizes[1:])),
+        max(sum(sizes[i] for i in first if first[i] <= ci <= last[i])
+            for ci in range(len(batches))))
+    assert len(batches) > 2 and largest < sum(sizes)
+    assert full.peak == sum(sizes)
+    assert 0 < lean.peak <= largest
+    assert lean.parsed <= 2 * len(paths)
+    assert low.keys() == default.keys()
+    for name, sk in low.items():
+        _assert_equal(sk, default[name])
+    want = ([w for p in paths for w in sketch_contigs_native(p, pp)]
+            if contigs else [sketch_file_native(p, pp) for p in paths])
+    assert sorted(w.name for w in want) == sorted(low)
+    for w in want:
+        _assert_equal(low[w.name], w)
+
+
+def test_low_memory_parses_a_lone_contig_fasta_once(tmp_path, monkeypatch):
+    """A lone contig FASTA, read by every batch, keeps its length-pass
+    parse under low_memory: one parse, as in the default mode."""
+    rng = np.random.default_rng(13)
+    pp = _params("small", fmh)
+    path = _write_fasta(tmp_path / "c.fna",
+                        [(f"c{j}", _random_seq(rng, n, n_prob=0.002))
+                         for j, n in enumerate((3000, 1200, 2500, 900, 2100))])
+    opened = []
+
+    class Recorded(ds._OpenFiles):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            opened.append(self)
+
+    monkeypatch.setattr(ds, "_OpenFiles", Recorded)
+    monkeypatch.setitem(ds.CONTIG_BATCH_BYTES, "cpu", 3000)
+    n = sum(1 for _ in ds.iter_device_sketch_contig_files(
+        [path], pp, CPU, low_memory=True))
+    assert n > 2 and opened[0].parsed == 1
+
+
 # ------------------------------------------------------- engine adoption
 
 

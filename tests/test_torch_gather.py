@@ -209,3 +209,49 @@ def test_probe_refuses_a_kernel_that_disagrees(monkeypatch):
     monkeypatch.setattr(tool, "KERNELS", tuple(bad))
     with pytest.raises(RuntimeError, match="gather_xor_chains unroll=8 differs"):
         tool.run_probe((shape,), iters=1, device=CPU)
+
+
+def test_probe_patterns_on_the_cpu():
+    """run_patterns at a small shape: every pattern through both kernels,
+    then the torch read of the table."""
+    shape = tool.Shape("s", 3 * tool.TILE_ROWS + 5, 999)
+    results = tool.run_patterns(shape, seed=2, iters=1, device=CPU)
+    got = [(r["pattern"], r["kernel"], r["unroll"], r["indices"])
+           for r in results]
+    want = [(p, k, u, shape.rows if p == "full" else shape.indices)
+            for p in tool.PATTERNS for k, _, us in tool.KERNELS for u in us]
+    assert got == want + [("full", "table_sum", None, shape.rows)]
+    assert all(r["ms"] > 0 for r in results)
+
+
+@pytest.mark.parametrize("pattern", tool.PATTERNS)
+def test_probe_patterns_are_indices_of_the_table(pattern):
+    rows = 5 * tool.TILE_ROWS + 3
+    idx, _ = tool.make_inputs(tool.Shape("s", rows, 4000), 1, CPU)
+    got = tool.pattern_indices(pattern, idx, rows)
+    assert got.dtype == torch.int32
+    assert 0 <= int(got.min()) and int(got.max()) < rows
+    if pattern in ("random", "sorted", "grouped"):
+        assert torch.equal(got.sort().values, idx.sort().values)
+    if pattern in ("sorted", "sequential", "full"):
+        assert bool((got[1:] >= got[:-1]).all())
+    assert got.numel() == (rows if pattern == "full" else 4000)
+
+
+def test_grouped_pattern_of_the_reference_probe_matches_pallas(
+        pallas_probe, reference_inputs):
+    """At the reference probe's full shape, the `grouped` pattern is the
+    stable grouping of the indices by tile, and the XOR over that order
+    equals the Pallas kernels' result in interpret mode."""
+    import jax.numpy as jnp
+
+    idx, table = reference_inputs
+    want = np.asarray(pallas_probe.pallas_gather_chains(8, True)(
+        jnp.asarray(idx), jnp.asarray(table)))
+    ti = torch.from_numpy(idx)
+    grouped = tool.pattern_indices("grouped", ti, pallas_probe.WT)
+    order = np.argsort(idx // tool.TILE_ROWS, kind="stable")
+    np.testing.assert_array_equal(grouped.numpy(), idx[order])
+    for fn, unroll in ((gp.gather_xor, 1), (gp.gather_xor_chains, 32)):
+        got = fn(grouped, words_to_torch(table), unroll)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
