@@ -38,9 +38,11 @@ exits non-zero):
    (128 families of 8, 98% ANI within a family) must find exactly the
    128 families, sketching on the card through K5 (every sketch equal to
    the host C++ sketcher's, the screen matrix built from device-born
-   rows) and screening through K1, with screen and verify on the card;
-   it prints the sketch phase's split (read, upload, K5 and the bucket
-   gather, bitmaps to bucket lists, host copies);
+   rows) and screening through K1, with screen and verify on the card
+   and the three phases overlapped (phases_overlapped, every verify
+   stream read from the stream arena); it prints the sketch phase's
+   split (read, upload, K5 and the bucket gather, bitmaps to bucket
+   lists, host copies);
 6. popcount path: the same run with GALAH_TPU_SCREEN=popcount must give
    a byte-identical clusters.tsv through K2, with K1 never launched;
 7. reference mode: the first genome of each family as
@@ -53,7 +55,12 @@ exits non-zero):
 9. contig path: `--cluster-contigs --small-contigs` over 100,000 synthetic
    5 kb contigs in one FASTA (20,000 families of 5 at 98% ANI) must find
    exactly the 20,000 families, every contig's device sketch equal to
-   the C++ sketcher's, through K5 and K1;
+   the C++ sketcher's, through K5 and K1, with the phases overlapped:
+   the first screen tile issued before the last contig was sketched
+   (screen_rows_at_first_dispatch), every verify stream read from the
+   stream arena with no reset; then once more with GALAH_TPU_PIPELINE=0,
+   which must give the same candidate pairs and a byte-identical
+   clusters.tsv;
 10. streaming at scale: 10,240 synthetic packed rows of 2^17 bits with
    200 planted near-duplicate pairs; the resident and streaming packed
    sweeps (55 tiles of 1024^2) give identical pairs and ANI, and the
@@ -612,6 +619,7 @@ def _recording():
 
     rec = {"screen_dev": set(), "verify_dev": set(), "tile_shapes": set(),
            "pairs": None, "verified": {}, "device_sketches": []}
+    finish = pf.IncrementalPackedScreen.finish
     screens = ("screen_triangle_packed", "screen_triangle_popcount",
                "screen_rectangle_packed")
     orig = {
@@ -622,6 +630,7 @@ def _recording():
         (fa.FragmentAniEngine, "bidirectional"):
             fa.FragmentAniEngine.bidirectional,
         (ds, "sketch_host_batch"): ds.sketch_host_batch,
+        (pf.IncrementalPackedScreen, "finish"): finish,
         **{(native, s): getattr(native, s) for s in screens},
     }
 
@@ -663,6 +672,9 @@ def _recording():
     fa._forward_kernel = forward_kernel
     fa.FragmentAniEngine.bidirectional = bidirectional
     ds.sketch_host_batch = sketch_host_batch
+    # The resident screen's pairs, whether its rows came at once or, with
+    # the phases overlapped, batch by batch.
+    pf.IncrementalPackedScreen.finish = screen(finish)
     for s in screens:
         setattr(native, s, screen(orig[(native, s)]))
     try:
@@ -682,9 +694,10 @@ def _launch_counters():
 
 
 def _run_cli(inputs, out_dir: str, tag: str, platform: str,
-             screen: str | None = None, flags=()):
-    """One `cluster` run; returns (wall, metrics, clusters.tsv bytes,
-    recording, {kernel: launches in this run})."""
+             screen: str | None = None, flags=(), env=None):
+    """One `cluster` run, with the environment variables `env` set for
+    it; returns (wall, metrics, clusters.tsv bytes, recording, {kernel:
+    launches in this run})."""
     from galah_tpu_torch.cli.main import main
 
     tsv = os.path.join(out_dir, f"{tag}.tsv")
@@ -694,8 +707,10 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
             "--output-cluster-definition", tsv, "--metrics-json", mjson,
             "-q", *flags]
     os.environ["GALAH_TPU_PLATFORM"] = platform
+    env = dict(env or {})
     if screen:
-        os.environ["GALAH_TPU_SCREEN"] = screen
+        env["GALAH_TPU_SCREEN"] = screen
+    os.environ.update(env)
     counters = _launch_counters()
     try:
         for fn in counters.values():
@@ -706,7 +721,8 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
             wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
     finally:
-        os.environ.pop("GALAH_TPU_SCREEN", None)
+        for var in env:
+            os.environ.pop(var, None)
     check(rc == 0, f"{tag}: cluster exited {rc}")
     with open(mjson) as f:
         run_metrics = json.load(f)
@@ -761,8 +777,9 @@ def _log_run(phase: str, wall: float, m: dict, launches: dict, rec) -> None:
             "genomes_sketched", "contigs_sketched", "sketch_bases",
             "screen_tiles", "screen_pairs_computed",
             "screen_rows_device_born", "screen_rows_host_uploaded",
+            "phases_overlapped", "screen_rows_at_first_dispatch",
             "verify_directed_pairtable", "verify_directed_grouped",
-            "clusters")
+            "verify_streams_uploaded", "stream_arena_resets", "clusters")
     }))
     if "sketch_device_batches" in counters:
         log(phase, "sketch split (s; lengths is the first pass over the "
@@ -825,6 +842,20 @@ def _check_device_sketches(rec, want_fn, units, phase: str) -> None:
                f"{host_s:.2f} s)")
 
 
+def _check_overlapped(m: dict, phase: str) -> None:
+    """The run overlapped its phases and verified device-born streams
+    from the stream arena, uploading none and never resetting it."""
+    c = m["counters"]
+    check(c.get("phases_overlapped") == 1,
+          f"{phase}: sketch, screen and verify did not overlap")
+    check(not c.get("verify_streams_uploaded"),
+          f"{phase}: verify uploaded {c.get('verify_streams_uploaded')} "
+          "streams")
+    check(not c.get("stream_arena_resets"),
+          f"{phase}: the stream arena reset {c.get('stream_arena_resets')} "
+          "times")
+
+
 def phase_main_path(work: str, corpus: str, paths, fam_ids):
     """The packed path, sketching on the card; returns (launches,
     clusters.tsv bytes)."""
@@ -847,6 +878,7 @@ def phase_main_path(work: str, corpus: str, paths, fam_ids):
     check(launches["K5"] > 0, "K5 was never launched on the main path")
     check(m["counters"].get("screen_rows_device_born") == len(paths),
           "the screen matrix was not built from device-born rows")
+    _check_overlapped(m, "main")
     params = rec["device_sketches"][0].params
 
     def host():
@@ -932,9 +964,18 @@ def _contig_inputs(path: str):
     return ["-f", path, "--cluster-contigs", "--small-contigs"]
 
 
+def _sorted_pairs(res):
+    import numpy as np
+
+    o = np.lexsort((res.pairs[:, 1], res.pairs[:, 0]))
+    return res.pairs[o], res.ani_est[o]
+
+
 def phase_contig_path(work: str, path: str, names, fams) -> dict:
-    """--cluster-contigs --small-contigs over the contig corpus; returns
-    its launches."""
+    """--cluster-contigs --small-contigs over the contig corpus, with the
+    phases overlapped, then with GALAH_TPU_PIPELINE=0; returns the
+    overlapped run's launches."""
+    import numpy as np
     import torch
 
     from galah_tpu_torch.sketch.fracminhash import sketch_contigs_native
@@ -943,6 +984,12 @@ def phase_contig_path(work: str, path: str, names, fams) -> dict:
     wall, m, clusters, rec, launches = _run_cli(
         _contig_inputs(path), work, "contigs", "gpu")
     _log_run("contigs", wall, m, launches, rec)
+    _check_overlapped(m, "contigs")
+    first = m["counters"].get("screen_rows_at_first_dispatch")
+    log("contigs", f"first screen tile issued after {first} of "
+                   f"{len(names)} rows")
+    check(first is not None and first < len(names),
+          "the screen waited for the whole corpus")
     n_clusters = _families_exact(clusters, names, fams)
     check(n_clusters == CONTIG_CORPUS[0],
           f"{n_clusters} clusters, want {CONTIG_CORPUS[0]}")
@@ -958,6 +1005,24 @@ def phase_contig_path(work: str, path: str, names, fams) -> dict:
         names, "contigs")
     log("contigs", f"OK: {n_clusters} clusters, one per family; {tiles} "
                    f"tiles, K1 {launches['K1']}, K5 {launches['K5']}")
+    seq_wall, seq_m, seq_clusters, seq_rec, seq_launches = _run_cli(
+        _contig_inputs(path), work, "contigs_sequential", "gpu",
+        env={"GALAH_TPU_PIPELINE": "0"})
+    _log_run("contigs-sequential", seq_wall, seq_m, seq_launches, seq_rec)
+    check("phases_overlapped" not in seq_m["counters"],
+          "GALAH_TPU_PIPELINE=0 still overlapped the phases")
+    check(seq_clusters == clusters,
+          "the sequential run's clusters.tsv differs from the overlapped one")
+    (pp, pa), (sp, sa) = (_sorted_pairs(rec["pairs"]),
+                          _sorted_pairs(seq_rec["pairs"]))
+    check(np.array_equal(pp, sp) and np.array_equal(pa, sa),
+          "the sequential run's candidate pairs differ")
+    check(seq_launches["K1"] == launches["K1"],
+          f"K1 launches {seq_launches['K1']} sequential, {launches['K1']} "
+          "overlapped")
+    log("contigs", f"OK: GALAH_TPU_PIPELINE=0 gives the same {len(pp)} "
+                   f"candidate pairs and clusters.tsv; wall {wall:.2f} s "
+                   f"overlapped, {seq_wall:.2f} s sequential")
     return launches
 
 
@@ -1034,10 +1099,6 @@ def phase_parity(work: str) -> None:
     _, ref_inputs = _reference_inputs(work, "parity", paths, fam_ids)
     dir_inputs = ["-d", corpus, "-x", "fna"]
 
-    def sorted_pairs(res):
-        o = np.lexsort((res.pairs[:, 1], res.pairs[:, 0]))
-        return res.pairs[o], res.ani_est[o]
-
     contig_path, contig_names, contig_fams = make_contig_corpus(
         work, PARITY_CONTIGS, "parity_contigs")
     for mode, inputs, screen, flags in (
@@ -1056,8 +1117,8 @@ def phase_parity(work: str) -> None:
             runs["cpu"], runs["gpu"])
         check(rec_c["screen_dev"] == {"cpu"} and rec_g["screen_dev"] == {"cuda"},
               f"{mode}: parity runs on the wrong devices")
-        pc, ac = sorted_pairs(rec_c["pairs"])
-        pg, ag = sorted_pairs(rec_g["pairs"])
+        pc, ac = _sorted_pairs(rec_c["pairs"])
+        pg, ag = _sorted_pairs(rec_g["pairs"])
         check(np.array_equal(pc, pg), f"{mode}: candidate pairs differ")
         check(np.array_equal(ac, ag), f"{mode}: screen ANI differs")
         vc, vg = rec_c["verified"], rec_g["verified"]

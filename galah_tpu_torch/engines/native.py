@@ -9,14 +9,24 @@ so every unit is sketched once per run. `distances()`:
    (ops/device_sketch.py, K5), on the CPU by the host sketcher (the C++
    one when it loads, threaded); GALAH_TPU_DEVICE_SKETCH=1/0 forces
    either. Device-born bitmaps are adopted into the verify bitmap pool
-   and, for the resident packed screen, into its matrix
-   (GALAH_TPU_RESIDENT=0 turns adoption off);
+   and, for the resident packed screen, into its matrix, and their
+   fragment streams into the verify stream arena (GALAH_TPU_RESIDENT=0
+   turns adoption off);
 2. screen all pairs at a conservative containment cutoff: the packed
    triangle screen (ops/prefilter.py), resident or streaming, or the
    popcount screen (ops/popcount_screen.py) under
    GALAH_TPU_SCREEN=popcount;
 3. verify the surviving pairs (ops/fragment_ani.py);
 4. return the pairs whose verified ANI and AF pass, as a sparse cache.
+
+With device sketching and the resident packed screen (every default
+run on a card), the three phases overlap instead (_run_pipelined): each
+sketch batch's device-born prefilter rows go straight into an
+IncrementalPackedScreen, which issues every tile whose row blocks are
+complete while later batches are read and sketched, and the drained
+tiles' pairs are verified in chunks as they come (_VerifyFeeder).
+GALAH_TPU_PIPELINE=0 runs the phases one after another; the results are
+the same.
 
 `distances_contigs()` does the same with one unit per contig (contig
 mode), and `distances_with_references()` screens the (query, reference)
@@ -49,7 +59,9 @@ from galah_tpu_torch.engines.base import (
 from galah_tpu_torch.ops.fragment_ani import FragmentAniConfig, FragmentAniEngine
 from galah_tpu_torch.ops.popcount_screen import screen_triangle_popcount
 from galah_tpu_torch.ops.prefilter import (
+    IncrementalPackedScreen,
     ScreenResult,
+    _device_resident_budget,
     screen_rectangle_packed,
     screen_triangle_packed,
 )
@@ -249,11 +261,81 @@ def _screen_min_containment(
 
 def _emit_verified(res, idx_by_key_pair, threshold_pct, min_af, cache):
     """Insert bidirectional verify results into the sparse cache: the AF
-    and ANI filter, every index pair per key pair, float32 rounding."""
+    and ANI filter, every index pair per key pair (the duplicate-path
+    rule: an input given twice is emitted in every cluster it belongs
+    to), float32 rounding. The one implementation, shared by the batch
+    and the overlapped verify."""
     for kp, (ani, af_f, af_r) in res.items():
         for i, j in idx_by_key_pair[kp]:
             if max(af_f, af_r) >= min_af and ani >= threshold_pct:
                 cache.insert((i, j), float(np.float32(ani)))
+
+
+def _chain_sinks(base, extra):
+    """One per-batch callback from the device-sketch adoption `base`
+    and an `extra` one (the pipeline's screen feed), base first, so the
+    verify caches hold a batch before any of its screen tiles can
+    drain."""
+    if extra is None:
+        return base
+
+    def chained(names, sketches, dev):
+        base(names, sketches, dev)
+        extra(names, sketches, dev)
+
+    return chained
+
+
+class _VerifyFeeder:
+    """Verify while the screen runs: drained tiles' pairs are verified
+    in chunks of GALAH_TPU_VERIFY_FLUSH pairs (50,000 by default; 0
+    verifies everything in finish()). Results are per pair, so the
+    chunking changes none of them: the cache equals the one-batch
+    _verify_pairs cache. The time spent verifying goes to the "verify"
+    phase and to verify_pairs_per_s."""
+
+    def __init__(self, owner: "NativePreclusterer", sketch_for) -> None:
+        env = os.environ.get("GALAH_TPU_VERIFY_FLUSH")
+        self.chunk_pairs = int(env) if env else 50_000
+        self.owner = owner
+        self.sketch_for = sketch_for
+        self.cache = SortedPairDistanceCache()
+        self.total = 0
+        self.verify_seconds = 0.0
+        self._buf: List[np.ndarray] = []
+        self._buffered = 0
+
+    def feed(self, pairs: np.ndarray, anis=None) -> None:
+        if len(pairs) == 0:
+            return
+        self._buf.append(pairs)
+        self._buffered += len(pairs)
+        if self.chunk_pairs and self._buffered >= self.chunk_pairs:
+            self._flush()
+
+    def _flush(self) -> None:
+        if not self._buf:
+            return
+        pairs = np.concatenate(self._buf)
+        self._buf, self._buffered = [], 0
+        t0 = time.perf_counter()
+        owner = self.owner
+        owner._verify_into(pairs, self.sketch_for, self.cache)
+        self.total += len(pairs)
+        self.verify_seconds += time.perf_counter() - t0
+
+    def finish(self) -> SortedPairDistanceCache:
+        self._flush()
+        m = metrics.current()
+        m.phases["verify"] = m.phases.get("verify", 0.0) + self.verify_seconds
+        if self.total:
+            m.rate("verify_pairs_per_s", self.total, self.verify_seconds)
+        logger.info(
+            "Verified %d candidate pairs (overlapped); %d passed "
+            "ANI>=%.4g with AF>=%.3g", self.total, len(self.cache),
+            self.owner.threshold, self.owner.min_aligned_threshold,
+        )
+        return self.cache
 
 
 class NativeContext:
@@ -418,8 +500,9 @@ class NativeContext:
 
         return build
 
-    def _sketch_on_device(self, missing: Sequence[str]) -> int:
-        """Device-sketch genome files into the store, batch by batch;
+    def _sketch_on_device(self, missing: Sequence[str], sink) -> int:
+        """Device-sketch genome files into the store, batch by batch,
+        each batch handed to sink(names, sketches, device products);
         returns the bases sketched."""
         from galah_tpu_torch.ops.device_sketch import iter_device_sketch_files
 
@@ -428,16 +511,19 @@ class NativeContext:
                 missing, self.params, self.device, threads=self.threads,
                 low_memory=self.low_memory):
             names = [missing[i] for i in idx]
-            self._adopt(names, sketches, dev)
+            sink(names, sketches, dev)
             for p, sk in zip(names, sketches):
                 self._store.put(p, sk)
                 bases += sk.total_len
         return bases
 
-    def sketch_many(self, paths: Sequence[str]) -> Sequence[NativeSketch]:
+    def sketch_many(self, paths: Sequence[str],
+                    extra_sink=None) -> Sequence[NativeSketch]:
         """Sketch every path not yet in the store. Returns the sketches
         in `paths` order: a list, or in low-memory mode a lazy view that
-        loads them from the store on access."""
+        loads them from the store on access. extra_sink(names, sketches,
+        device products), when given, sees each device-sketch batch
+        after its adoption (the pipeline's screen feed)."""
         missing = [p for p in dict.fromkeys(paths) if p not in self._store]
         if missing:
             logger.info("Sketching %d genomes ..", len(missing))
@@ -445,7 +531,8 @@ class NativeContext:
             bases = 0
             with metrics.current().phase("sketch"):
                 if _use_device_sketch(self.device):
-                    bases = self._sketch_on_device(missing)
+                    bases = self._sketch_on_device(
+                        missing, _chain_sinks(self._adopt, extra_sink))
                 elif self.threads > 1 and len(missing) > 1:
                     with ThreadPoolExecutor(max_workers=self.threads) as ex:
                         sketches = ex.map(
@@ -467,17 +554,20 @@ class NativeContext:
             return _LazySketchList(self._store, list(paths))
         return [self._store.get(p) for p in paths]
 
-    def sketch_contigs(self, paths: Sequence[str]) -> List[NativeSketch]:
+    def sketch_contigs(self, paths: Sequence[str],
+                       extra_sink=None) -> List[NativeSketch]:
         """One sketch per contig, across files, in file order (the unit
         order of the reference's contig mode). Contig sketches stay in
-        memory in every mode, as in the reference."""
+        memory in every mode, as in the reference. extra_sink: as in
+        sketch_many."""
         missing = [p for p in dict.fromkeys(paths)
                    if p not in self._contig_store]
         if missing:
             self._sketched_any = True
             with metrics.current().phase("sketch"):
                 if _use_device_sketch(self.device):
-                    self._sketch_contigs_on_device(missing)
+                    self._sketch_contigs_on_device(
+                        missing, _chain_sinks(self._adopt, extra_sink))
                 else:
                     for path in missing:
                         self._contig_store[path] = sketch_contigs_native(
@@ -487,12 +577,13 @@ class NativeContext:
                 sum(len(self._contig_store[p]) for p in missing))
         return [sk for p in paths for sk in self._contig_store[p]]
 
-    def _sketch_contigs_on_device(self, missing: Sequence[str]) -> None:
+    def _sketch_contigs_on_device(self, missing: Sequence[str],
+                                  sink) -> None:
         from galah_tpu_torch.ops.device_sketch import device_sketch_contig_files
 
         for path, sketches in zip(missing, device_sketch_contig_files(
                 missing, self.params, self.device, threads=self.threads,
-                low_memory=self.low_memory, on_batch=self._adopt)):
+                low_memory=self.low_memory, on_batch=sink)):
             self._contig_store[path] = sketches
 
 
@@ -525,6 +616,8 @@ class NativePreclusterer(PreclusterDistanceFinder):
     def distances(
         self, genome_fasta_paths: Sequence[str]
     ) -> SortedPairDistanceCache:
+        if self._pipeline_enabled(len(genome_fasta_paths)):
+            return self._distances_pipelined(genome_fasta_paths)
         return self._screen_and_verify(self.ctx.sketch_many(genome_fasta_paths))
 
     def distances_contigs(
@@ -532,13 +625,142 @@ class NativePreclusterer(PreclusterDistanceFinder):
     ) -> SortedPairDistanceCache:
         """Contig mode: one unit per contig, screened and verified as
         genomes are."""
-        sketches = self.ctx.sketch_contigs(genome_fasta_paths)
+        if self._pipeline_enabled(len(contig_names)):
+            return self._distances_contigs_pipelined(genome_fasta_paths,
+                                                     contig_names)
+        return self._screen_and_verify(
+            self._contig_sketches(genome_fasta_paths, contig_names))
+
+    def _contig_sketches(self, paths: Sequence[str],
+                         contig_names: Sequence[str], extra_sink=None):
+        sketches = self.ctx.sketch_contigs(paths, extra_sink=extra_sink)
         if [s.name for s in sketches] != list(contig_names):
             raise ValueError(
                 "Contig names passed to distances_contigs do not match file "
                 "contents"
             )
-        return self._screen_and_verify(sketches)
+        return sketches
+
+    def _pipeline_enabled(self, n_units: int) -> bool:
+        """Whether sketch, screen and verify overlap (the reference's
+        rule, galah_tpu/engines/native.py::_pipeline_enabled): the
+        resident packed screen fed by device sketching, so not under
+        low memory, not with GALAH_TPU_RESIDENT=0 or another screen, and
+        only for a matrix within _device_resident_budget. There is one
+        device, so the reference's device-count test has nothing to
+        test. GALAH_TPU_PIPELINE=0 turns it off; =1 also runs it on host
+        sketches, whose rows all reach the screen after sketching."""
+        env = os.environ.get("GALAH_TPU_PIPELINE")
+        if env == "0" or n_units < 2:
+            return False
+        ctx = self.ctx
+        if ctx.low_memory or not _resident():
+            return False
+        if env != "1" and not _use_device_sketch(ctx.device):
+            return False
+        if _screen_backend() != "packed":
+            return False
+        w = ctx.params.prefilter_bits // 32
+        return n_units * w * 4 <= _device_resident_budget(ctx.device)
+
+    def _distances_pipelined(
+        self, paths: Sequence[str]
+    ) -> SortedPairDistanceCache:
+        """The overlapped phases over whole genomes (units keyed by
+        path; a path given twice feeds both of its rows)."""
+        idxs_by_key: Dict[str, List[int]] = {}
+        for i, p in enumerate(paths):
+            idxs_by_key.setdefault(p, []).append(i)
+        return self._run_pipelined(
+            len(paths), idxs_by_key,
+            lambda feed: self.ctx.sketch_many(paths, extra_sink=feed))
+
+    def _distances_contigs_pipelined(
+        self, paths: Sequence[str], contig_names: Sequence[str]
+    ) -> SortedPairDistanceCache:
+        """The overlapped phases over contigs (units keyed by contig
+        name; the CLI refuses duplicate names)."""
+        idxs_by_key: Dict[str, List[int]] = {}
+        for i, nm in enumerate(contig_names):
+            idxs_by_key.setdefault(nm, []).append(i)
+        return self._run_pipelined(
+            len(contig_names), idxs_by_key,
+            lambda feed: self._contig_sketches(paths, contig_names, feed))
+
+    def _run_pipelined(
+        self, n: int, idxs_by_key: Dict[str, List[int]], sketch_call,
+    ) -> SortedPairDistanceCache:
+        """Sketch, screen and verify overlapped: the sketch sink adds
+        each batch's device-born prefilter rows to an
+        IncrementalPackedScreen, whose tiles are issued as their row
+        blocks complete and whose drained pairs feed a _VerifyFeeder.
+        Rows the sink never saw (units already sketched, host sketches)
+        are added from the host after sketching. The "screen" phase
+        holds only the screen's time after sketching (the rest runs
+        inside the sketch phase), and phases_overlapped = 1 says the
+        phases overlap; screen_rows_at_first_dispatch counts the rows
+        fed when the first tile was issued. Results equal the
+        sequential path's. A failure anywhere propagates."""
+        ctx = self.ctx
+        k = ctx.params.k
+        bits = ctx.params.prefilter_bits
+        min_cont = _screen_min_containment(
+            self.threshold, self.min_aligned_threshold, k
+        )
+        logger.info("Sketching, screening and verifying %d units "
+                    "(overlapped) ..", n)
+        scr = IncrementalPackedScreen(n, k, min_cont, bits, ctx.device)
+        # A tile is issued only once its row blocks were fed, and every
+        # feed records its sketches first, so a drained pair's sketches
+        # are here.
+        sk_by_idx: Dict[int, NativeSketch] = {}
+        feeder = _VerifyFeeder(self, sk_by_idx.__getitem__)
+        scr.on_pairs = feeder.feed
+
+        def screen_feed(names, sketches, dev):
+            idxs: List[int] = []
+            src_rows: List[int] = []
+            sizes: List[float] = []
+            for r, (nm, sk) in enumerate(zip(names, sketches)):
+                for i in idxs_by_key.get(nm, ()):
+                    idxs.append(i)
+                    src_rows.append(r)
+                    sizes.append(float(sk.n_prefilter))
+                    sk_by_idx[i] = sk
+            if idxs:
+                scr.add_device_rows(idxs, dev["pref_words"], src_rows, sizes)
+
+        t0 = time.perf_counter()
+        sketches = sketch_call(screen_feed)
+        t_sketched = time.perf_counter()
+        for i in range(n):
+            if i not in sk_by_idx:
+                sk_by_idx[i] = sketches[i]
+        late = scr.missing_rows()
+        if late:
+            scr.add_host_rows(
+                late,
+                [pack_indicator(sk_by_idx[i].prefilter_buckets, bits)
+                 for i in late],
+                [float(sk_by_idx[i].n_prefilter) for i in late],
+            )
+        res = scr.finish()
+        tail = time.perf_counter() - t_sketched
+        m = metrics.current()
+        m.phases["screen"] = m.phases.get("screen", 0.0) + tail
+        m.counters["phases_overlapped"] = 1.0
+        m.rate("screen_pairs_per_s", n * (n - 1) // 2,
+               time.perf_counter() - t0)
+        m.count("screen_rows_device_born", n - len(late))
+        m.count("screen_rows_host_uploaded", len(late))
+        m.count("screen_rows_at_first_dispatch", scr.rows_at_first_dispatch)
+        logger.info(
+            "Pipelined screen: first tile issued after %d/%d rows; %d rows "
+            "added after sketching; screen tail %.2fs; %d candidate pairs",
+            scr.rows_at_first_dispatch, n, len(late), tail, len(res.pairs))
+        cache = feeder.finish()
+        self._report_indel_load(cache, sk_by_idx.__getitem__)
+        return cache
 
     def distances_with_references(
         self, genome_fasta_paths: Sequence[str], reference_genomes: Sequence[str]
@@ -696,38 +918,14 @@ class NativePreclusterer(PreclusterDistanceFinder):
         genomes, so at most about the disk store's working set is held
         at a time. Results are per pair, so the chunking changes none
         of them."""
-        ctx = self.ctx
-        threshold_pct = self.threshold
-        min_af = self.min_aligned_threshold
         cache = SortedPairDistanceCache()
         t0 = time.perf_counter()
         keys = (
             sketches._keys if isinstance(sketches, _LazySketchList) else None
         )
-        chunk_keys = LOW_MEMORY_VERIFY_KEYS if ctx.low_memory else None
-
-        def flush(key_pairs, sketches_by_key, idx_by_key_pair):
-            res = ctx.frag_engine.bidirectional(key_pairs, sketches_by_key)
-            _emit_verified(res, idx_by_key_pair, threshold_pct, min_af, cache)
-
-        sketches_by_key: Dict[str, NativeSketch] = {}
-        key_pairs: List[Tuple[str, str]] = []
-        idx_by_key_pair: Dict[Tuple[str, str], List[Tuple[int, int]]] = {}
-        for i, j in pairs:
-            i, j = int(i), int(j)
-            ki = keys[i] if keys else ctx.key_for(sketches[i])
-            kj = keys[j] if keys else ctx.key_for(sketches[j])
-            if ki not in sketches_by_key:
-                sketches_by_key[ki] = sketches[i]
-            if kj not in sketches_by_key:
-                sketches_by_key[kj] = sketches[j]
-            key_pairs.append((ki, kj))
-            idx_by_key_pair.setdefault((ki, kj), []).append((i, j))
-            if chunk_keys and len(sketches_by_key) >= chunk_keys:
-                flush(key_pairs, sketches_by_key, idx_by_key_pair)
-                sketches_by_key, key_pairs, idx_by_key_pair = {}, [], {}
-        if key_pairs:
-            flush(key_pairs, sketches_by_key, idx_by_key_pair)
+        self._verify_into(pairs, sketches.__getitem__, cache, keys,
+                          LOW_MEMORY_VERIFY_KEYS if self.ctx.low_memory
+                          else None)
         dt = time.perf_counter() - t0
         m = metrics.current()
         m.phases["verify"] = m.phases.get("verify", 0.0) + dt
@@ -735,9 +933,42 @@ class NativePreclusterer(PreclusterDistanceFinder):
             m.rate("verify_pairs_per_s", len(pairs), dt)
         logger.info(
             "Verified %d candidate pairs; %d passed ANI>=%.4g with AF>=%.3g",
-            len(pairs), len(cache), threshold_pct, min_af,
+            len(pairs), len(cache), self.threshold, self.min_aligned_threshold,
         )
         return cache
+
+    def _verify_into(self, pairs, sketch_for, cache, keys=None,
+                     chunk_keys: Optional[int] = None) -> None:
+        """Verify index pairs (sketches by sketch_for(i); keys[i] their
+        keys when given) and insert those that pass into `cache`, in
+        batches of chunk_keys distinct keys when given."""
+        ctx = self.ctx
+
+        def flush(key_pairs, sketches_by_key, idx_by_key_pair):
+            res = ctx.frag_engine.bidirectional(key_pairs, sketches_by_key)
+            _emit_verified(res, idx_by_key_pair, self.threshold,
+                           self.min_aligned_threshold, cache)
+
+        sketches_by_key: Dict[str, NativeSketch] = {}
+        key_pairs: List[Tuple[str, str]] = []
+        idx_by_key_pair: Dict[Tuple[str, str], List[Tuple[int, int]]] = {}
+        for i, j in pairs:
+            i, j = int(i), int(j)
+            if keys:
+                ki, kj = keys[i], keys[j]
+            else:
+                ki, kj = ctx.key_for(sketch_for(i)), ctx.key_for(sketch_for(j))
+            if ki not in sketches_by_key:
+                sketches_by_key[ki] = sketch_for(i)
+            if kj not in sketches_by_key:
+                sketches_by_key[kj] = sketch_for(j)
+            key_pairs.append((ki, kj))
+            idx_by_key_pair.setdefault((ki, kj), []).append((i, j))
+            if chunk_keys and len(sketches_by_key) >= chunk_keys:
+                flush(key_pairs, sketches_by_key, idx_by_key_pair)
+                sketches_by_key, key_pairs, idx_by_key_pair = {}, [], {}
+        if key_pairs:
+            flush(key_pairs, sketches_by_key, idx_by_key_pair)
 
 
 class NativeClusterer(ClusterDistanceFinder):

@@ -636,9 +636,13 @@ def sketch_host_batch(
     """Sketch a planned batch on `device`: upload, K5 and the gather of
     its fragment buckets (or the plain version on the CPU), bitmaps to
     bucket lists, one host copy. Returns the sketches and the device-born
-    bitmaps {"member_words", "pref_words"}, (G, W) int32 rows in the
-    batch's unit order. Adds the batch's split to the current metrics:
-    sketch_{upload,kernel,unpack,copy}_s."""
+    products: the bitmaps "member_words" and "pref_words", (G, W) int32
+    rows in the batch's unit order; the fragment streams "frag_buckets",
+    every unit's fragments' buckets back to back in unit order, (N,)
+    int32 on the device; and "stream_off", (G + 1,) int64 on the host:
+    unit u's stream is frag_buckets[stream_off[u]:stream_off[u + 1]],
+    its fragment offsets those of its sketch. Adds the batch's split to
+    the current metrics: sketch_{upload,kernel,unpack,copy}_s."""
     clock = _Clock(device)
     clock.mark()
     batch = upload_batch(hb, params, device)
@@ -689,7 +693,9 @@ def sketch_host_batch(
         m.count(name, v)
     m.count("sketch_device_batches", 1)
     m.count("sketch_upload_bytes", int(hb.seq.nbytes))
-    return sketches, {"member_words": member, "pref_words": pref}
+    return sketches, {"member_words": member, "pref_words": pref,
+                      "frag_buckets": frag_buckets,
+                      "stream_off": f_off[hb.frag_off]}
 
 
 def device_sketch_batch(

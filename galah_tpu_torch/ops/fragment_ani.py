@@ -15,14 +15,21 @@ Two kernels, both plain torch on the device:
 Routing is per undirected pair, so a pair's two directions never mix the
 two kernels' numerics (fixed-point vs float32 identity sums);
 GALAH_TPU_VERIFY=pairtable|grouped forces one kernel for every pair.
+
+Both read the query side's fragment streams from the stream arena
+(StreamArena) when they are there: device-born streams are adopted into
+it device to device as each sketch batch completes, host streams are
+uploaded into it once per residency. GALAH_TPU_ARENA=0 turns the arena
+off: every dispatch uploads its streams, as before the arena.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from collections import OrderedDict, defaultdict
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +38,9 @@ from galah_tpu_torch import defaults
 from galah_tpu_torch.ops.pair_table import PairTableConfig, PairTableVerifier
 from galah_tpu_torch.sketch.fracminhash import NativeSketch
 from galah_tpu_torch.utils import metrics
-from galah_tpu_torch.utils.convert import sketch_tensors, u32_to_i32
+from galah_tpu_torch.utils.convert import sketch_tensors, to_device, u32_to_i32
+
+logger = logging.getLogger(__name__)
 
 # Buckets scattered per bitmap-pool fill step (bounds the int64 index
 # temporaries to ~128 MB).
@@ -249,6 +258,239 @@ class _BitmapPool:
         return rows, self._popc[rows]
 
 
+def _arena_enabled() -> bool:
+    """Whether verify reads fragment streams from the stream arena;
+    GALAH_TPU_ARENA=0 uploads them per dispatch instead (the
+    reference's switch; results are the same either way)."""
+    return os.environ.get("GALAH_TPU_ARENA", "1") != "0"
+
+
+def _arena_capacities(device: torch.device) -> Tuple[int, int]:
+    """(hash slots, fragment-offset slots) of the stream arena, int32
+    each: 2^29 and 2^24 on a card (2 GiB and 64 MiB: the streams of
+    100,000 contigs of 5 kb under --small-contigs take about 2.5 * 10^8
+    and 6 * 10^5 of them, those of 1,024 genomes of 1 Mb fewer), 2^22
+    and 2^18 on the CPU. GALAH_TPU_ARENA_HASHES / GALAH_TPU_ARENA_FRAGS
+    override (the reference's variables)."""
+    hc = os.environ.get("GALAH_TPU_ARENA_HASHES")
+    fc = os.environ.get("GALAH_TPU_ARENA_FRAGS")
+    dh, df = ((1 << 29, 1 << 24) if device.type == "cuda"
+              else (1 << 22, 1 << 18))
+    return int(hc) if hc else dh, int(fc) if fc else df
+
+
+def _runs(items: Sequence[Tuple[int, int, int]]) -> List[Tuple[int, int, int]]:
+    """(src, dst, length) copies merged where both sides continue the
+    previous one."""
+    out: List[List[int]] = []
+    for src, dst, n in items:
+        if out and out[-1][0] + out[-1][2] == src and \
+                out[-1][1] + out[-1][2] == dst:
+            out[-1][2] += n
+        else:
+            out.append([src, dst, n])
+    return [tuple(r) for r in out]
+
+
+class StreamArena:
+    """Fragment streams resident on the device (counterpart of
+    galah_tpu/ops/fragment_ani.py::StreamArena).
+
+    One int32 buffer holds streams back to back (a unit's fragment
+    buckets), another each unit's fragment offsets made absolute (its
+    stream's position in the first buffer added), F + 1 slots a unit.
+    The pair-table kernel addresses unique source streams through
+    per-pair starts, so it reads both buffers in place; the grouped
+    kernel reads a unit's span. A stream is uploaded at most once per
+    residency (ensure), and a device-born one is copied in device to
+    device with no upload at all (adopt).
+
+    Allocation appends; when a stream does not fit, the whole arena
+    resets (one request's streams are bounded far below the capacity,
+    so a reset makes room). A stream larger than the arena is never
+    resident: its callers upload it per dispatch. Every write is queued
+    on the device's current stream, after the kernels queued before it
+    that read what it overwrites, so a reset never reaches a dispatch
+    already issued."""
+
+    def __init__(self, device: torch.device, hash_capacity: int,
+                 frag_capacity: int) -> None:
+        self.device = device
+        self.hash_capacity = hash_capacity
+        self.frag_capacity = frag_capacity
+        # Only spans are ever read, so the buffers need no zeroing.
+        self.hashes = torch.empty(hash_capacity, dtype=torch.int32,
+                                  device=device)
+        self.offsets = torch.empty(frag_capacity, dtype=torch.int32,
+                                   device=device)
+        self._map: Dict[object, Tuple[int, int]] = {}
+        self._hash_top = 0
+        self._offs_top = 0
+        self.resets = 0
+
+    def reset(self) -> None:
+        self._map.clear()
+        self._hash_top = 0
+        self._offs_top = 0
+        self.resets += 1
+        metrics.current().count("stream_arena_resets", 1)
+
+    def span(self, key) -> Optional[Tuple[int, int]]:
+        """(hash offset, offsets offset) if key is resident."""
+        return self._map.get(key)
+
+    def spans(self, keys) -> Dict[object, Tuple[int, int]]:
+        """{key: (hash offset, offsets offset)} for resident keys only."""
+        return {k: self._map[k] for k in keys if k in self._map}
+
+    def _fits(self, nh: int, nf: int) -> bool:
+        return nh <= self.hash_capacity and nf + 1 <= self.frag_capacity
+
+    def would_reset(self, keys, sketches_by_key) -> bool:
+        """Whether ensure(keys) would reset the arena (exact: nothing is
+        padded). Only a reset moves what is resident."""
+        need_h = need_f = 0
+        seen = set()
+        for k in keys:
+            if k in self._map or k in seen:
+                continue
+            seen.add(k)
+            sk = sketches_by_key[k]
+            nh, nf = len(sk.frag_buckets), sk.n_fragments
+            if self._fits(nh, nf):
+                need_h += nh
+                need_f += nf + 1
+        return (self._hash_top + need_h > self.hash_capacity
+                or self._offs_top + need_f > self.frag_capacity)
+
+    def _alloc(self, key, nh: int, nf: int) -> None:
+        """Reserve a stream of nh hashes and nf fragments, resetting the
+        arena when it is full. The caller checked _fits."""
+        if (self._hash_top + nh > self.hash_capacity
+                or self._offs_top + nf + 1 > self.frag_capacity):
+            logger.info("stream arena full (%d/%d hashes); resetting",
+                        self._hash_top, self.hash_capacity)
+            self.reset()
+        self._map[key] = (self._hash_top, self._offs_top)
+        self._hash_top += nh
+        self._offs_top += nf + 1
+
+    def _place(self, keys: Sequence, sizes: Sequence[Tuple[int, int]]):
+        """Allocate every key not resident whose stream fits, with the
+        reference's reset-safety rule: _alloc may reset the arena midway
+        and drop both this request's earlier allocations and keys that
+        were resident before it, so each attempt recomputes what is
+        missing from the current map, and every key allocated in any
+        attempt is (re)filled at its final span. Returns the positions
+        in `keys` to fill."""
+        fresh = set()
+        for _ in (0, 1):
+            for p, k in enumerate(keys):
+                if k not in self._map and self._fits(*sizes[p]):
+                    self._alloc(k, *sizes[p])
+                    fresh.add(p)
+            if all(k in self._map for p, k in enumerate(keys)
+                   if self._fits(*sizes[p])):
+                break
+            self.reset()
+        return sorted(p for p in fresh if keys[p] in self._map)
+
+    def _fill_offsets(self, keys: Sequence, sketches: Sequence,
+                      todo: Sequence[int]) -> None:
+        """Each todo key's fragment offsets, made absolute, uploaded in
+        runs of consecutive slots."""
+        runs: List[List] = []
+        for p in todo:
+            h, o = self._map[keys[p]]
+            offs = np.asarray(sketches[p].frag_offsets, np.int64) + h
+            if runs and runs[-1][0] + runs[-1][1] == o:
+                runs[-1][1] += len(offs)
+                runs[-1][2].append(offs)
+            else:
+                runs.append([o, len(offs), [offs]])
+        for o, n, parts in runs:
+            self.offsets[o:o + n] = to_device(
+                np.concatenate(parts).astype(np.int32), self.device)
+
+    def _fill_host(self, keys: Sequence, sketches: Sequence,
+                   todo: Sequence[int]) -> None:
+        """Upload the todo keys' streams from their host sketches, in
+        runs of consecutive slots: the arena's only stream upload."""
+        metrics.current().count("verify_streams_uploaded", len(todo))
+        runs: List[List] = []
+        for p in todo:
+            h, _ = self._map[keys[p]]
+            b = np.asarray(sketches[p].frag_buckets, np.int32)
+            if runs and runs[-1][0] + runs[-1][1] == h:
+                runs[-1][1] += len(b)
+                runs[-1][2].append(b)
+            else:
+                runs.append([h, len(b), [b]])
+        for h, n, parts in runs:
+            self.hashes[h:h + n] = to_device(np.concatenate(parts),
+                                             self.device)
+        self._fill_offsets(keys, sketches, todo)
+
+    def ensure(self, keys, sketches_by_key) -> Dict[object, Tuple[int, int]]:
+        """Make every key's stream resident, uploading those that are
+        not; returns {key: (hash offset, offsets offset)}. A key whose
+        stream does not fit the arena at all is absent from the result
+        (its caller uploads it per dispatch).
+
+        Reset safety: an allocation may reset the arena midway, which
+        drops both earlier allocations of this request and keys that
+        were resident before it; _place re-allocates from the current
+        map, and every key allocated in any attempt is filled at its
+        final span."""
+        uniq = list(dict.fromkeys(keys))
+        sks = [sketches_by_key[k] for k in uniq]
+        todo = self._place(uniq, [(len(s.frag_buckets), s.n_fragments)
+                                  for s in sks])
+        if todo:
+            self._fill_host(uniq, sks, todo)
+        return self.spans(keys)
+
+    def adopt(self, keys, sketches, frag_buckets: torch.Tensor,
+              stream_off: np.ndarray) -> None:
+        """Adopt a device-sketch batch's streams: keys[u]'s stream is
+        frag_buckets[stream_off[u]:stream_off[u + 1]] on the device
+        (sketch_host_batch's products), copied into the arena device to
+        device, in runs of consecutive units. Its offsets come from the
+        batch's host sketches, which its one host copy already made.
+        Keys already resident are skipped."""
+        uniq = {}
+        for u, k in enumerate(keys):
+            if k not in self._map:
+                uniq.setdefault(k, u)
+        if not uniq:
+            return
+        ks = list(uniq)
+        us = [uniq[k] for k in ks]
+        todo = self._place(ks, [(len(sketches[u].frag_buckets),
+                                 sketches[u].n_fragments) for u in us])
+        copies = []
+        for p in todo:
+            u = us[p]
+            lo, hi = int(stream_off[u]), int(stream_off[u + 1])
+            copies.append((lo, self._map[ks[p]][0], hi - lo))
+        for src, dst, n in _runs(copies):
+            self.hashes[dst:dst + n] = frag_buckets[src:src + n]
+        self._fill_offsets(ks, [sketches[u] for u in us], todo)
+
+    def query(self, key, sk: NativeSketch
+              ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """(buckets (N,) int32, offsets (F+1,) int32 relative to the
+        stream) of a resident key's stream, read from the arena; None if
+        it is not resident (galah_tpu/ops/fragment_ani.py::
+        _query_from_arena)."""
+        span = self._map.get(key)
+        if span is None:
+            return None
+        h, o = span
+        n = len(sk.frag_buckets)
+        return self.hashes[h:h + n], self.offsets[o:o + sk.n_fragments + 1] - h
+
+
 class FragmentAniEngine:
     """Device-side pair-ANI evaluator over NativeSketch data; owns the
     bitmap pool that both kernels read."""
@@ -273,16 +515,81 @@ class FragmentAniEngine:
             ),
             self.pool,
             device,
+            arena_fn=self.stream_arena,
         )
+        self._arena: Optional[StreamArena] = None
+
+    def stream_arena(self) -> StreamArena:
+        """The engine's stream arena, allocated on first use."""
+        if self._arena is None:
+            self._arena = StreamArena(self.device,
+                                      *_arena_capacities(self.device))
+        return self._arena
 
     def adopt_batch(self, keys, sketches: Sequence[NativeSketch],
                     dev) -> None:
-        """Adopt one device-sketch batch's member bitmaps
-        (dev["member_words"], rows in `keys` order) into the bitmap pool,
-        with no host round trip. The host sketches stay the fallback for
-        any key the pool evicts later."""
+        """Adopt one device-sketch batch's products, with no host round
+        trip: its member bitmaps (dev["member_words"], rows in `keys`
+        order) into the bitmap pool and, unless GALAH_TPU_ARENA=0, its
+        fragment streams (dev["frag_buckets"], dev["stream_off"]) into
+        the stream arena. The host sketches stay the fallback for any
+        key the pool or the arena drops later."""
         self.pool.adopt(keys, dev["member_words"], range(len(keys)),
                         [s.member_popcount for s in sketches])
+        if _arena_enabled():
+            self.stream_arena().adopt(keys, sketches, dev["frag_buckets"],
+                                      dev["stream_off"])
+
+    def _query_arrays(self, key, sk: NativeSketch
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A query's (buckets, offsets) on the device: read from the
+        stream arena when its stream is resident there, else uploaded."""
+        if _arena_enabled() and self._arena is not None:
+            got = self._arena.query(key, sk)
+            if got is not None:
+                return got
+        metrics.current().count("verify_streams_uploaded", 1)
+        st = sketch_tensors(sk, self.device)
+        return st.frag_buckets, st.frag_offsets
+
+    def one_to_many_issue(
+        self,
+        query: NativeSketch,
+        query_key,
+        refs: Sequence[NativeSketch],
+        ref_keys: Sequence,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Queue the grouped kernel for `query`'s fragments against each
+        ref's bitmap, without reading anything back (the reference's
+        one_to_many_async). Returns (ani_pct (R,), af (R,)) on the
+        device."""
+        cfg = self.cfg
+        dev = self.device
+        buckets, offsets = self._query_arrays(query_key, query)
+        r_chunk = refs_per_dispatch(len(query.frag_buckets),
+                                    cfg.max_refs_per_dispatch)
+        anis, afs = [], []
+        for lo in range(0, len(refs), r_chunk):
+            keys = list(ref_keys[lo : lo + r_chunk])
+            self.pool.ensure(keys, list(refs[lo : lo + r_chunk]))
+            rows, pc = self.pool.rows(keys)
+            ani, af = _forward_kernel(
+                self.pool.buffer,
+                to_device(rows, dev),
+                to_device(pc, dev),
+                buckets,
+                offsets,
+                bits=cfg.member_bits,
+                k=cfg.k,
+                min_hashes=cfg.min_fragment_hashes,
+                min_ident=cfg.min_fragment_identity,
+            )
+            anis.append(ani)
+            afs.append(af)
+        if not anis:
+            empty = torch.empty(0, dtype=torch.float32, device=dev)
+            return empty, empty
+        return torch.cat(anis), torch.cat(afs)
 
     def one_to_many(
         self,
@@ -293,32 +600,8 @@ class FragmentAniEngine:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """ANI/AF of `query`'s fragments against each ref's bitmap
         (grouped kernel). Returns (ani_pct (R,), af (R,))."""
-        cfg = self.cfg
-        dev = self.device
-        stream = sketch_tensors(query, dev)
-        r_chunk = refs_per_dispatch(len(query.frag_buckets),
-                                    cfg.max_refs_per_dispatch)
-        anis, afs = [], []
-        for lo in range(0, len(refs), r_chunk):
-            keys = list(ref_keys[lo : lo + r_chunk])
-            self.pool.ensure(keys, list(refs[lo : lo + r_chunk]))
-            rows, pc = self.pool.rows(keys)
-            ani, af = _forward_kernel(
-                self.pool.buffer,
-                torch.from_numpy(rows).to(dev),
-                torch.from_numpy(pc).to(dev),
-                stream.frag_buckets,
-                stream.frag_offsets,
-                bits=cfg.member_bits,
-                k=cfg.k,
-                min_hashes=cfg.min_fragment_hashes,
-                min_ident=cfg.min_fragment_identity,
-            )
-            anis.append(ani)
-            afs.append(af)
-        if not anis:
-            return np.empty(0, np.float32), np.empty(0, np.float32)
-        return torch.cat(anis).cpu().numpy(), torch.cat(afs).cpu().numpy()
+        ani, af = self.one_to_many_issue(query, query_key, refs, ref_keys)
+        return ani.cpu().numpy(), af.cpu().numpy()
 
     def bidirectional(self, pairs, sketches_by_key):
         """Bidirectional ANI over key pairs, in this process (the
@@ -360,14 +643,23 @@ class FragmentAniEngine:
             directed = defaultdict(set)
             for a, b in large_pairs:
                 directed[a].add(b)
+            # Every source is queued before any result is read, and one
+            # copy brings them all home (the reference's
+            # one_to_many_async, then collect).
+            issued = []
             for src in sorted(directed):
                 targets = sorted(directed[src])
-                anis, afs = self.one_to_many(
+                issued.append((src, targets, self.one_to_many_issue(
                     sketches_by_key[src], src,
                     [sketches_by_key[t] for t in targets], targets,
-                )
-                for t, x, y in zip(targets, anis, afs):
-                    fwd[(src, t)] = (float(x), float(y))
+                )))
+            anis = torch.cat([a for _, _, (a, _) in issued]).cpu().numpy()
+            afs = torch.cat([f for _, _, (_, f) in issued]).cpu().numpy()
+            o = 0
+            for src, targets, _ in issued:
+                for t in targets:
+                    fwd[(src, t)] = (float(anis[o]), float(afs[o]))
+                    o += 1
         out = {}
         for a, b in pairs:
             ani_f, af_f = fwd[(a, b)]

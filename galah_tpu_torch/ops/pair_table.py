@@ -4,9 +4,13 @@
 A batch of directed (source, target) pairs is evaluated in one pass of
 plain torch on the device:
 
-- the batch's unique source fragment streams are concatenated and
-  uploaded once; per-pair descriptors map the flat (pair-duplicated)
-  hash domain back onto them, broadcast with repeat_interleave;
+- the batch's unique source fragment streams are read in place from the
+  engine's stream arena (ops/fragment_ani.py::StreamArena), where
+  device-born streams were adopted and host streams are uploaded once a
+  residency; a stream too large for the arena, or every stream under
+  GALAH_TPU_ARENA=0, is uploaded with the batch instead. Per-pair
+  descriptors map the flat (pair-duplicated) hash domain back onto
+  them, broadcast with repeat_interleave;
 - target membership bitmaps are rows of the engine's bitmap pool,
   read in place through per-pair row ids;
 - per-fragment hit counts are differences of one prefix sum at the
@@ -20,10 +24,13 @@ from __future__ import annotations
 
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from galah_tpu_torch.utils import metrics
+from galah_tpu_torch.utils.convert import to_device
 
 _FX_ONE = 1 << 14  # fixed-point scale of the per-pair identity sums
 
@@ -144,12 +151,15 @@ class _Usage:
 
 class PairTableVerifier:
     """Host-side batcher for the pair-table kernel. `pool` is the
-    engine's bitmap pool (ops/fragment_ani.py::_BitmapPool)."""
+    engine's bitmap pool (ops/fragment_ani.py::_BitmapPool);
+    arena_fn(), when given, its stream arena."""
 
-    def __init__(self, cfg: PairTableConfig, pool, device: torch.device) -> None:
+    def __init__(self, cfg: PairTableConfig, pool, device: torch.device,
+                 arena_fn: Optional[Callable] = None) -> None:
         self.cfg = cfg
         self.pool = pool
         self.device = device
+        self._arena_fn = arena_fn
 
     def _plan_batches(
         self, directed_pairs: Sequence[Tuple], sketches_by_key: Dict
@@ -216,7 +226,10 @@ class PairTableVerifier:
         """Evaluate directed (src, tgt) pairs; returns
         {(src, tgt): (ani_pct, af_src_direction)}. Every batch is issued
         before any result is read, so batches queue back to back on the
-        device; one device-to-host copy brings all results home."""
+        device; one device-to-host copy brings all results home. That is
+        safe with the arena and the pool rewriting what an earlier batch
+        reads, because every write is queued on the same stream after
+        the kernels queued before it."""
         batches = self._plan_batches(directed_pairs, sketches_by_key)
         if not batches:
             return {}
@@ -234,21 +247,9 @@ class PairTableVerifier:
     def _dispatch(self, batch: List[Tuple], sketches_by_key: Dict):
         cfg = self.cfg
         dev = self.device
-        src_start: Dict = {}
-        src_ufrag_start: Dict = {}
-        streams: List[np.ndarray] = []
-        uoff_parts: List[np.ndarray] = [np.zeros(1, np.int64)]
-        uh = uf = 0
-        for s, _ in batch:
-            if s in src_start:
-                continue
-            sk = sketches_by_key[s]
-            src_start[s] = uh
-            src_ufrag_start[s] = uf
-            streams.append(np.asarray(sk.frag_buckets, np.int32))
-            uoff_parts.append(np.asarray(sk.frag_offsets[1:], np.int64) + uh)
-            uh += len(sk.frag_buckets)
-            uf += sk.n_fragments
+        src_order = list(dict.fromkeys(s for s, _ in batch))
+        streams = self._streams(src_order, sketches_by_key)
+        ustream, uoffsets, src_start, src_ufrag_start = streams
 
         tgt_order: List = []
         tgt_index: Dict = {}
@@ -280,14 +281,11 @@ class PairTableVerifier:
         prow = rows[pref]
 
         def up(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(dev)
+            return to_device(a, dev)
 
-        ustream = (
-            np.concatenate(streams) if uh else np.zeros(0, np.int32)
-        )
         return _pair_table_kernel(
-            up(ustream),
-            up(np.concatenate(uoff_parts).astype(np.int32)),
+            ustream,
+            uoffsets,
             self.pool.buffer,
             up(popcounts),
             up(psrc), up(pfs), up(puf), up(pffs),
@@ -297,3 +295,45 @@ class PairTableVerifier:
             min_hashes=cfg.min_fragment_hashes,
             min_ident=cfg.min_fragment_identity,
         )
+
+    def _streams(self, src_order: List, sketches_by_key: Dict):
+        """(streams (U,) int32, fragment offsets int32, {source: its
+        stream's start}, {source: its first offset}) on the device: the
+        stream arena's buffers and spans, or, when a source does not fit
+        the arena or GALAH_TPU_ARENA=0, the batch's own upload."""
+        from galah_tpu_torch.ops.fragment_ani import _arena_enabled
+
+        if self._arena_fn is not None and _arena_enabled():
+            arena = self._arena_fn()
+            spans = arena.ensure(src_order, sketches_by_key)
+            if all(s in spans for s in src_order):
+                return (arena.hashes, arena.offsets,
+                        {s: spans[s][0] for s in src_order},
+                        {s: spans[s][1] for s in src_order})
+        return upload_streams(src_order, sketches_by_key, self.device)
+
+
+def upload_streams(src_order: List, sketches_by_key: Dict,
+                   device: torch.device):
+    """The sources' streams concatenated and uploaded for one dispatch,
+    with their offsets made absolute and sharing each boundary: the
+    per-dispatch upload the stream arena replaces. Returns what
+    PairTableVerifier._streams does."""
+    metrics.current().count("verify_streams_uploaded", len(src_order))
+    src_start: Dict = {}
+    src_ufrag_start: Dict = {}
+    streams: List[np.ndarray] = []
+    uoff_parts: List[np.ndarray] = [np.zeros(1, np.int64)]
+    uh = uf = 0
+    for s in src_order:
+        sk = sketches_by_key[s]
+        src_start[s] = uh
+        src_ufrag_start[s] = uf
+        streams.append(np.asarray(sk.frag_buckets, np.int32))
+        uoff_parts.append(np.asarray(sk.frag_offsets[1:], np.int64) + uh)
+        uh += len(sk.frag_buckets)
+        uf += sk.n_fragments
+    ustream = np.concatenate(streams) if uh else np.zeros(0, np.int32)
+    return (to_device(ustream, device),
+            to_device(np.concatenate(uoff_parts).astype(np.int32), device),
+            src_start, src_ufrag_start)

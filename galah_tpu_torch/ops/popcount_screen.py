@@ -18,7 +18,7 @@ that float32 value in numpy. The diagonal tile keeps only i < j.
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -31,7 +31,9 @@ from galah_tpu_torch.ops.packed_matmul import (
 )
 from galah_tpu_torch.ops.prefilter import (
     ScreenResult,
+    _concat,
     _containment,
+    _emit_tile,
     _empty_result,
     _streamer,
     _sweep,
@@ -130,21 +132,37 @@ def screen_triangle_popcount(
     n = len(packed)
     if n == 0:
         return _empty_result()
-    bits_f = float(bits)
-    min_cont_f = float(np.float32(min_containment))
+    stream = _streamer(packed, np.asarray(sizes).astype(np.float32), block,
+                       device)
+    return _sweep(stream, stream, n, n, triangle=True,
+                  queue=_PopcountTiles(bits, min_containment, k),
+                  block=block)
 
-    def tile(si, sj, ai, aj, diag):
+
+class _PopcountTiles:
+    """The popcount screen's tiles for _sweep, each decided and read
+    back as it is issued: float32 containment against the float32
+    cutoff, every hit kept."""
+
+    def __init__(self, bits: int, min_containment: float, k: int) -> None:
+        self.bits_f = float(bits)
+        self.min_cont_f = float(np.float32(min_containment))
+        self.inv_k = 1.0 / k
+        self.pairs: List[np.ndarray] = []
+        self.anis: List[np.ndarray] = []
+
+    def issue(self, si, sj, ai, aj, *, diag: bool, row0: int,
+              col0: int) -> None:
         counts = popcount_tile_counts(si, sj).to(torch.float32)
-        cont = _containment(counts, ai, aj, bits_f)
-        mask = cont >= min_cont_f
+        cont = _containment(counts, ai, aj, self.bits_f)
+        mask = cont >= self.min_cont_f
         if diag:
             mask &= torch.ones_like(mask).triu_(1)
         hit = torch.nonzero(mask)
         vals = cont[hit[:, 0], hit[:, 1]].cpu().numpy()
         hit = hit.cpu().numpy()
-        return hit[:, 0], hit[:, 1], vals
+        _emit_tile(hit[:, 0], hit[:, 1], vals, row0=row0, col0=col0,
+                   inv_k=self.inv_k, pairs=self.pairs, anis=self.anis)
 
-    stream = _streamer(packed, np.asarray(sizes).astype(np.float32), block,
-                       device)
-    return _sweep(stream, stream, n, n, triangle=True, tile=tile,
-                  block=block, k=k)
+    def result(self) -> ScreenResult:
+        return _concat(self.pairs, self.anis)

@@ -3,43 +3,50 @@
 Genome prefilter sketches are packed uint32 bitmap rows (int32 tensors
 holding the same bits). A sweep walks (block x block) tiles: the upper
 triangle of one matrix (screen_triangle_packed) or every (query block,
-reference block) tile of a rectangle (screen_rectangle_packed); per tile:
+reference block) tile of a rectangle (screen_rectangle_packed). Each
+tile goes through two steps (_TileQueue):
 
-1. intersection counts, from the packed-popcount kernel
-   (ops/packed_matmul.py);
-2. collision-corrected max containment, in the reference's float32
-   operation order (_containment);
-3. the float32 cutoff and, on diagonal tiles, the strict-upper mask;
-4. hit extraction with torch.nonzero on the device, row-major; only
-   the hits leave the device, their values rounded to bfloat16;
-5. host decode under the reference's emit rules (_emit_tile).
+- issue, device work only: intersection counts from the
+  packed-popcount kernel (ops/packed_matmul.py), collision-corrected
+  max containment in the reference's float32 operation order
+  (_containment), the float32 cutoff and, on diagonal tiles, the
+  strict-upper mask, then the hits extracted row-major into a
+  fixed-capacity buffer (a prefix sum and a search, no host sync) with
+  their values rounded to bfloat16, and one copy of that buffer home;
+- drain, once the copy has landed: the reference's overflow rules
+  (_drain_tile) and its emit rules (_emit_tile).
 
-Resident sweeps upload the packed matrix once (or take it from the
-engine's matrix builder, which assembles it from device-born sketch
-rows) and slice its tiles;
-streaming sweeps (low-memory mode, or a matrix over the device budget)
-upload each tile's row blocks from the host row sequence. The two keep
-the reference's two overflow rules (_screen_tile): a resident tile is
-decided on its bfloat16-rounded containment (the reference's dense
-fallback) only past `cap` hits; a streaming tile also when its hits
-span more than `_row_sel(rows)` rows, because the reference has no
-resident matrix to re-extract such a tile from.
+Up to a window of tiles is in flight between the two (TILE_WINDOW, or 2
+while rows still arrive). Resident sweeps hold the packed matrix on the
+device and slice its tiles: IncrementalPackedScreen, fed row block by
+row block while the corpus is sketched (the engine's pipeline), or with
+the whole matrix at once (screen_triangle_packed). Streaming sweeps
+(low-memory mode, or a matrix over the device budget) upload each
+tile's row blocks from the host row sequence (_sweep). Both keep the
+reference's two overflow rules: a resident tile is decided on its
+bfloat16-rounded containment (the reference's dense fallback) only
+past `cap` hits; a streaming tile also when its hits span more than
+`_row_sel(rows)` rows, because the reference has no resident matrix to
+re-extract such a tile from.
 
-Pairs come out tile by tile in sweep order, row-major within a tile,
-exactly as the reference's sweeps emit them.
+Pairs come out tile by tile in the order tiles were issued, row-major
+within a tile: the reference's sweep order for a sweep, the order in
+which tiles became ready for a screen fed row by row.
 """
 
 from __future__ import annotations
 
+import os
+from collections import deque
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
 from galah_tpu_torch.utils import metrics
-from galah_tpu_torch.utils.convert import words_to_torch
+from galah_tpu_torch.utils.convert import to_device, words_to_torch
 
 DEFAULT_BLOCK = 1024
 
@@ -48,14 +55,13 @@ DEFAULT_BLOCK = 1024
 # more rows is decided densely.
 ROW_SEL = 128
 
+# Tiles in flight before the oldest is drained (the reference's
+# TILE_WINDOW): bounds the tiles' containment matrices and host buffers
+# held at once while the host queues the next tiles.
+TILE_WINDOW = 16
+
 # (packed rows, sizes) of one block on the device.
 Block = Tuple[torch.Tensor, torch.Tensor]
-# One tile's decision: (si, sj, ai, aj, diag) -> (ii, jj, vals) host
-# arrays of its hits, row-major.
-TileFn = Callable[
-    [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, bool],
-    Tuple[np.ndarray, np.ndarray, np.ndarray],
-]
 
 
 @dataclass(frozen=True)
@@ -70,11 +76,18 @@ def _empty_result() -> ScreenResult:
     return ScreenResult(np.empty((0, 2), np.int64), np.empty(0, np.float32))
 
 
+def _concat(pairs: List[np.ndarray], anis: List[np.ndarray]) -> ScreenResult:
+    """One result from the tiles' emitted pairs and ANI, in order."""
+    if pairs:
+        return ScreenResult(np.concatenate(pairs), np.concatenate(anis))
+    return _empty_result()
+
+
 def _screen_cap_for(block: int) -> int:
     """Per-tile hit capacity of the reference's sparse extraction,
     linear in the tile edge. Past it the reference decides the tile on
-    its bfloat16 containment (the dense fallback); _screen_tile keeps
-    that rule so the pair set matches at any hit count."""
+    its bfloat16 containment (the dense fallback); the drain keeps that
+    rule so the pair set matches at any hit count."""
     return 16384 * max(1, block // 1024)
 
 
@@ -93,6 +106,15 @@ def _device_resident_budget(device: torch.device) -> int:
     return 4 << 30
 
 
+def _pipeline_window() -> int:
+    """In-flight window of a screen whose rows still arrive: 2, or
+    GALAH_TPU_PIPELINE_WINDOW (the reference's rule). A shallow window
+    drains tiles while the corpus is still being sketched instead of
+    leaving them all to finish()."""
+    env = os.environ.get("GALAH_TPU_PIPELINE_WINDOW")
+    return max(1, int(env)) if env else 2
+
+
 def _containment(
     counts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, bits_f: float
 ) -> torch.Tensor:
@@ -108,45 +130,28 @@ def _containment(
     return torch.clamp(c / denom, max=1.0)
 
 
-def _screen_tile(
-    si: torch.Tensor,
-    sj: torch.Tensor,
-    ai: torch.Tensor,
-    aj: torch.Tensor,
-    bits_f: float,
-    min_cont_f: float,
-    cap: int,
-    diag: bool,
-    streaming: bool,
-):
-    """One tile: (ii, jj, vals) host arrays of its hits, row-major, with
-    vals the bfloat16-rounded containment as float32.
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bfloat16, as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
-    The tile is decided on its float32 containment unless it has more
-    than `cap` hits or, when `streaming`, its hits span more than
-    _row_sel rows: then on its bfloat16 containment, against the same
-    float32 cutoff (the reference's dense path)."""
-    counts = packed_intersect_counts(si, sj).to(torch.float32)
-    cont = _containment(counts, ai, aj, bits_f)
-    upper = None
-    if diag:
-        upper = torch.ones(
-            cont.shape, dtype=torch.bool, device=cont.device
-        ).triu_(1)
-    mask = cont >= min_cont_f
-    if upper is not None:
-        mask &= upper
-    dense = int(mask.sum()) > cap
-    if streaming and not dense:
-        dense = int(mask.any(dim=1).sum()) > _row_sel(mask.shape[0])
-    if dense:
-        mask = cont.to(torch.bfloat16).to(torch.float32) >= min_cont_f
-        if upper is not None:
-            mask &= upper
-    hit = torch.nonzero(mask)
-    vals = cont[hit[:, 0], hit[:, 1]].to(torch.bfloat16).to(torch.float32)
-    hit = hit.cpu().numpy()
-    return hit[:, 0], hit[:, 1], vals.cpu().numpy()
+
+def _extract_hits(mask: torch.Tensor, cont: torch.Tensor,
+                  slots: torch.Tensor, rows: bool) -> torch.Tensor:
+    """One tile's hits as one int32 device buffer of 2 + 2 * cap words,
+    with no host sync: [hit count, rows with a hit (when `rows`, else
+    0), the first cap hits' flat indices row-major, their
+    bfloat16-rounded containment as float32 bits]. `slots` is
+    1..cap as int32: the hit of slot s is the first position whose
+    inclusive prefix count reaches s, and slots past the count hold the
+    tile's last position."""
+    flat = mask.reshape(-1)
+    csum = torch.cumsum(flat, 0, dtype=torch.int32)
+    idx = torch.searchsorted(csum, slots, out_int32=True)
+    idx = idx.clamp_(max=flat.numel() - 1)
+    vals = _bf16(cont.reshape(-1).index_select(0, idx))
+    hit_rows = (mask.any(dim=1).sum(dtype=torch.int32).view(1) if rows
+                else torch.zeros(1, dtype=torch.int32, device=mask.device))
+    return torch.cat([csum[-1:], hit_rows, idx, vals.view(torch.int32)])
 
 
 def _emit_tile(
@@ -159,30 +164,316 @@ def _emit_tile(
     inv_k: float,
     pairs: List[np.ndarray],
     anis: List[np.ndarray],
-) -> None:
+) -> bool:
     """The reference's _drain_tile emit rules: rebase by row0/col0 and
     convert containment to ANI as v ** (1/k) * 100 in numpy float32.
     Tiles are exact row slices here, never zero-padded, so the
     reference's drop of padding rows (keep_rows/keep_cols) has nothing
-    to remove."""
+    to remove. Returns whether the tile had a hit."""
     gi = ii.astype(np.int64) + row0
     gj = jj.astype(np.int64) + col0
     v = vals.astype(np.float32)
-    if len(gi):
-        pairs.append(np.stack([gi, gj], axis=1).astype(np.int64))
-        anis.append((v ** inv_k * 100.0).astype(np.float32))
+    if not len(gi):
+        return False
+    pairs.append(np.stack([gi, gj], axis=1).astype(np.int64))
+    anis.append((v ** inv_k * 100.0).astype(np.float32))
+    return True
 
 
-def _packed_tile(
-    bits: int, min_containment: float, block: int, streaming: bool
-) -> TileFn:
-    """The packed screens' per-tile decision (_screen_tile) for _sweep."""
-    cap = _screen_cap_for(block)
-    min_cont_f = float(np.float32(min_containment))
-    return lambda si, sj, ai, aj, diag: _screen_tile(
-        si, sj, ai, aj, float(bits), min_cont_f, cap,
-        diag=diag, streaming=streaming,
-    )
+@dataclass
+class _Tile:
+    """One issued tile, until its drain: where it sits, its containment
+    matrix (kept so that an overflowing tile is decided on the very
+    values it was issued with, without a second count), and its hit
+    buffer on the host with the event that marks the copy done (None on
+    the CPU, where the buffer is the result itself)."""
+
+    row0: int
+    col0: int
+    diag: bool
+    cont: torch.Tensor
+    host: torch.Tensor
+    done: Optional["torch.cuda.Event"]
+
+
+class _TileQueue:
+    """The packed screens' tiles in flight: `issue` queues one tile's
+    device work and the copy of its hits home; once more than `window`
+    tiles are queued the oldest is drained. The one implementation of
+    the issue/drain split and of the window, for every sweep."""
+
+    def __init__(self, bits: int, min_containment: float, block: int,
+                 k: int, *, streaming: bool) -> None:
+        self.bits_f = float(bits)
+        self.min_cont_f = float(np.float32(min_containment))
+        self.cap = _screen_cap_for(block)
+        self.inv_k = 1.0 / k
+        self.streaming = streaming
+        self.window = TILE_WINDOW
+        self.pairs: List[np.ndarray] = []
+        self.anis: List[np.ndarray] = []
+        # Called with each drained tile's (pairs, ani_est) when it has
+        # a hit: the engine's verify feeder.
+        self.on_pairs: Optional[Callable[[np.ndarray, np.ndarray], None]] = None
+        self._pending: "deque[_Tile]" = deque()
+        self._free: List[torch.Tensor] = []  # pinned hit buffers to reuse
+        self._upper: Dict[Tuple, torch.Tensor] = {}
+        self._slots: Dict[torch.device, torch.Tensor] = {}
+
+    def _upper_mask(self, shape, device) -> torch.Tensor:
+        key = (tuple(shape), device)
+        if key not in self._upper:
+            self._upper[key] = torch.ones(
+                shape, dtype=torch.bool, device=device).triu_(1)
+        return self._upper[key]
+
+    def _slots_on(self, device) -> torch.Tensor:
+        if device not in self._slots:
+            self._slots[device] = torch.arange(
+                1, self.cap + 1, dtype=torch.int32, device=device)
+        return self._slots[device]
+
+    def issue(self, si: torch.Tensor, sj: torch.Tensor, ai: torch.Tensor,
+              aj: torch.Tensor, *, diag: bool, row0: int, col0: int) -> None:
+        """Queue one tile (row block si with sizes ai against column
+        block sj with sizes aj) and drain tiles past the window."""
+        counts = packed_intersect_counts(si, sj).to(torch.float32)
+        cont = _containment(counts, ai, aj, self.bits_f)
+        mask = cont >= self.min_cont_f
+        if diag:
+            mask &= self._upper_mask(mask.shape, mask.device)
+        hits = _extract_hits(mask, cont, self._slots_on(mask.device),
+                             rows=self.streaming)
+        done = None
+        if hits.device.type == "cuda":
+            host = (self._free.pop() if self._free else torch.empty(
+                hits.numel(), dtype=torch.int32, pin_memory=True))
+            host.copy_(hits, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host = hits
+        self._pending.append(_Tile(row0, col0, diag, cont, host, done))
+        while len(self._pending) > self.window:
+            self._drain(self._pending.popleft())
+
+    def _drain(self, t: _Tile) -> None:
+        """Decode one tile under the reference's overflow rules
+        (_drain_tile) and emit it."""
+        if t.done is not None:
+            t.done.synchronize()
+        buf = t.host.numpy()
+        cap = self.cap
+        cnt, rows = int(buf[0]), int(buf[1])
+        dense = cnt > cap or (
+            self.streaming and rows > _row_sel(t.cont.shape[0]))
+        if dense:
+            mask = _bf16(t.cont) >= self.min_cont_f
+            if t.diag:
+                mask &= self._upper_mask(mask.shape, mask.device)
+            hit = torch.nonzero(mask)
+            vals = _bf16(t.cont[hit[:, 0], hit[:, 1]]).cpu().numpy()
+            hit = hit.cpu().numpy()
+            ii, jj = hit[:, 0], hit[:, 1]
+        else:
+            flat = buf[2:2 + cnt].astype(np.int64)
+            cols = t.cont.shape[1]
+            ii, jj = flat // cols, flat % cols
+            vals = buf[2 + cap:2 + cap + cnt].view(np.float32)
+        got = _emit_tile(ii, jj, vals, row0=t.row0, col0=t.col0,
+                         inv_k=self.inv_k, pairs=self.pairs, anis=self.anis)
+        if t.done is not None:
+            self._free.append(t.host)
+        if got and self.on_pairs is not None:
+            self.on_pairs(self.pairs[-1], self.anis[-1])
+
+    def result(self) -> ScreenResult:
+        """Drain every tile still in flight; every pair in issue order."""
+        while self._pending:
+            self._drain(self._pending.popleft())
+        return _concat(self.pairs, self.anis)
+
+
+class IncrementalPackedScreen:
+    """Resident packed triangle screen fed row by row (counterpart of
+    galah_tpu/ops/prefilter.py::IncrementalPackedScreen).
+
+    The matrix of n rows lives on `device`. Rows arrive device to
+    device from a sketch batch's prefilter words (add_device_rows) or
+    from the host (add_host_rows); each tile whose two row blocks are
+    complete is issued at once, so the screen runs while later units
+    are still being sketched. The sequential resident sweep is the
+    degenerate case (set_prebuilt, then finish()), so both share one
+    issue/drain path (_TileQueue) and give the same pairs for any feed
+    order. A tile's row blocks are complete, and never written again,
+    before it is issued, and its drain reads only what its issue
+    computed. Calls come from one thread; finish() comes after the last
+    row."""
+
+    def __init__(self, n: int, k: int, min_containment: float, bits: int,
+                 device: torch.device, block: int = 0,
+                 row_width: int = 0) -> None:
+        if n <= 0:
+            raise ValueError("IncrementalPackedScreen needs n >= 1")
+        self.n = n
+        self.block = block or DEFAULT_BLOCK
+        self.device = device
+        self.w = row_width or bits // 32
+        self.nblocks = -(-n // self.block)
+        self._x = torch.zeros((n, self.w), dtype=torch.int32, device=device)
+        self._s = torch.zeros(n, dtype=torch.float32, device=device)
+        self._queue = _TileQueue(bits, min_containment, self.block, k,
+                                 streaming=False)
+        self._added = np.zeros(n, dtype=bool)
+        self._left = [min(self.block, n - b * self.block)
+                      for b in range(self.nblocks)]
+        self._complete: List[int] = []
+        self._finished = False
+        # Rows fed when the first tile was issued (None until then;
+        # under n shows the screen started before the corpus was
+        # sketched).
+        self.rows_at_first_dispatch: Optional[int] = None
+        self.rows_added = 0
+
+    @property
+    def on_pairs(self):
+        """Called with each drained tile's (pairs (P, 2) int64, ani_est
+        (P,) float32) when it has a hit, as soon as it is decoded."""
+        return self._queue.on_pairs
+
+    @on_pairs.setter
+    def on_pairs(self, fn) -> None:
+        self._queue.on_pairs = fn
+
+    @property
+    def window(self) -> int:
+        """Tiles in flight before the oldest drains: TILE_WINDOW for a
+        prebuilt matrix, _pipeline_window() once rows arrive
+        incrementally."""
+        return self._queue.window
+
+    # ---- feeding -----------------------------------------------------
+
+    def _check_open(self) -> None:
+        if self._finished:
+            raise RuntimeError("IncrementalPackedScreen already finished")
+
+    def _fresh(self, idxs: Sequence[int]) -> List[int]:
+        """Positions in idxs of rows not yet added, first occurrence."""
+        seen = set()
+        out = []
+        for p, i in enumerate(idxs):
+            if not self._added[i] and i not in seen:
+                seen.add(i)
+                out.append(p)
+        return out
+
+    def _note_added(self, idxs: Sequence[int]) -> List[int]:
+        """Mark rows added; the blocks that just completed."""
+        done = []
+        for i in idxs:
+            self._added[i] = True
+            self.rows_added += 1
+            b = i // self.block
+            self._left[b] -= 1
+            if self._left[b] == 0:
+                done.append(b)
+        return done
+
+    def _schedule(self, new_blocks: Sequence[int]) -> None:
+        """Issue every tile that became ready with `new_blocks`: for
+        each, its tiles against every complete block, in sorted order."""
+        for b in new_blocks:
+            self._complete.append(b)
+            for bi, bj in sorted((min(b, c), max(b, c))
+                                 for c in self._complete):
+                self._issue(bi, bj)
+
+    def add_device_rows(self, idxs: Sequence[int], src: torch.Tensor,
+                        src_rows: Sequence[int],
+                        sizes: Sequence[float]) -> None:
+        """matrix[idxs[b]] = src[src_rows[b]], device to device, for a
+        (G, W) int32 tensor of packed rows on the screen's device (a
+        sketch batch's prefilter words). Rows already added are
+        skipped."""
+        self._check_open()
+        self._queue.window = _pipeline_window()
+        keep = self._fresh(idxs)
+        if not keep:
+            return
+        dst = [int(idxs[p]) for p in keep]
+        dst_t = to_device(np.asarray(dst, np.int64), self.device)
+        rows = to_device(np.asarray([src_rows[p] for p in keep], np.int64),
+                         self.device)
+        self._x.index_copy_(0, dst_t, src.index_select(0, rows))
+        self._s.index_copy_(0, dst_t, to_device(
+            np.asarray([sizes[p] for p in keep], np.float32), self.device))
+        self._schedule(self._note_added(dst))
+
+    def add_host_rows(self, idxs: Sequence[int], rows: Sequence[np.ndarray],
+                      sizes: Sequence[float]) -> None:
+        """Upload host-packed uint32 rows (pack_indicator output), in
+        chunks of about 64 MiB."""
+        self._check_open()
+        self._queue.window = _pipeline_window()
+        keep = self._fresh(idxs)
+        step = max(1, (64 << 20) // (self.w * 4))
+        for lo in range(0, len(keep), step):
+            chunk = keep[lo:lo + step]
+            dst = [int(idxs[p]) for p in chunk]
+            dst_t = to_device(np.asarray(dst, np.int64), self.device)
+            mat = words_to_torch(np.stack([rows[p] for p in chunk])).numpy()
+            self._x.index_copy_(0, dst_t, to_device(mat, self.device))
+            self._s.index_copy_(0, dst_t, to_device(
+                np.asarray([sizes[p] for p in chunk], np.float32),
+                self.device))
+            self._schedule(self._note_added(dst))
+
+    def set_prebuilt(self, x: torch.Tensor, s: torch.Tensor) -> None:
+        """The whole (n, W) int32 matrix and (n,) float32 sizes at once,
+        on the screen's device; tiles are issued in the sweep's order
+        (row block bi, then column blocks bj >= bi)."""
+        self._check_open()
+        if self.rows_added:
+            raise RuntimeError("set_prebuilt after rows were added")
+        self._x, self._s = x, s
+        self._added[:] = True
+        self.rows_added = self.n
+        self._left = [0] * self.nblocks
+        self._complete = list(range(self.nblocks))
+        for bi in range(self.nblocks):
+            for bj in range(bi, self.nblocks):
+                self._issue(bi, bj)
+
+    def missing_rows(self) -> List[int]:
+        """Rows never fed, for the caller to add from the host before
+        finish() (units the sketch sink never saw)."""
+        return [int(i) for i in np.nonzero(~self._added)[0]]
+
+    # ---- issue / finish ----------------------------------------------
+
+    def _issue(self, bi: int, bj: int) -> None:
+        if self.rows_at_first_dispatch is None:
+            self.rows_at_first_dispatch = self.rows_added
+        m = metrics.current()
+        m.count("screen_tiles", 1)
+        m.count("screen_pairs_computed", self.block * self.block)
+        b = self.block
+        si, ai = self._x[bi * b:(bi + 1) * b], self._s[bi * b:(bi + 1) * b]
+        sj, aj = self._x[bj * b:(bj + 1) * b], self._s[bj * b:(bj + 1) * b]
+        self._queue.issue(si, sj, ai, aj, diag=bi == bj, row0=bi * b,
+                          col0=bj * b)
+
+    def finish(self) -> ScreenResult:
+        """Drain every tile; the screen's pairs. Raises if a row was
+        never fed."""
+        self._check_open()
+        self._finished = True
+        if self.rows_added != self.n:
+            raise RuntimeError(
+                f"screen finish() with {self.n - self.rows_added} rows "
+                "never fed")
+        return self._queue.result()
 
 
 def _sweep(
@@ -192,31 +483,21 @@ def _sweep(
     n_cols: int,
     *,
     triangle: bool,
-    tile: TileFn,
+    queue: _TileQueue,
     block: int,
-    k: int,
 ) -> ScreenResult:
     """Every tile of a sweep, in the reference's order: row block bi
     once per row of tiles, then column blocks bj >= bi (triangle; the
-    diagonal tile reuses the row block) or every bj (rectangle).
-    `tile(si, sj, ai, aj, diag)` decides one tile: its hits (ii, jj)
-    and their containment values, row-major."""
-    inv_k = 1.0 / k
-    pairs: List[np.ndarray] = []
-    anis: List[np.ndarray] = []
+    diagonal tile reuses the row block) or every bj (rectangle), each
+    issued into `queue`."""
     for bi in range(-(-n_rows // block)):
         si, ai = row_block(bi)
         for bj in range(bi if triangle else 0, -(-n_cols // block)):
             diag = triangle and bj == bi
             sj, aj = (si, ai) if diag else col_block(bj)
-            ii, jj, vals = tile(si, sj, ai, aj, diag)
-            _emit_tile(
-                ii, jj, vals, row0=bi * block, col0=bj * block,
-                inv_k=inv_k, pairs=pairs, anis=anis,
-            )
-    if pairs:
-        return ScreenResult(np.concatenate(pairs), np.concatenate(anis))
-    return _empty_result()
+            queue.issue(si, sj, ai, aj, diag=diag, row0=bi * block,
+                        col0=bj * block)
+    return queue.result()
 
 
 def _row_width(packed: Sequence[np.ndarray]) -> int:
@@ -232,8 +513,8 @@ def _host_block(
     """Rows [lo, hi) of a host row sequence, uploaded to `device`."""
     mat = np.stack([np.asarray(packed[t]) for t in range(lo, hi)])
     return (
-        words_to_torch(mat).to(device),
-        torch.from_numpy(sizes_f[lo:hi]).to(device),
+        to_device(words_to_torch(mat).numpy(), device),
+        to_device(sizes_f[lo:hi], device),
     )
 
 
@@ -266,7 +547,7 @@ def screen_triangle_packed(
 
     packed: n rows of (bits/32,) uint32 words (any sequence; rows are
     read by index); sizes: (n,) set sizes. The packed matrix is uploaded
-    to `device` once and the tiles are slices of it, unless
+    to `device` once and swept by IncrementalPackedScreen, unless
     cache_blocks=False (low-memory mode) or the matrix exceeds
     _device_resident_budget: then each tile's blocks stream from the
     host (the reference's streaming branch, with its overflow rule).
@@ -278,23 +559,18 @@ def screen_triangle_packed(
         return _empty_result()
     sizes_f = np.asarray(sizes).astype(np.float32)
     w = _row_width(packed)
-    kw = dict(triangle=True, block=block, k=k)
     if cache_blocks and n * w * 4 <= _device_resident_budget(device):
+        scr = IncrementalPackedScreen(n, k, min_containment, bits, device,
+                                      block=block, row_width=w)
         if matrix_builder is not None:
-            x = matrix_builder(n)
-            s = torch.from_numpy(sizes_f).to(device)
+            scr.set_prebuilt(matrix_builder(n), to_device(sizes_f, device))
         else:
-            x, s = _host_block(packed, sizes_f, 0, n, device)
-        tiles = -(-n // block) * (-(-n // block) + 1) // 2
-        m = metrics.current()
-        m.count("screen_tiles", tiles)
-        m.count("screen_pairs_computed", tiles * block * block)
-        get = _slicer(x, s, block)
-        tile = _packed_tile(bits, min_containment, block, streaming=False)
-        return _sweep(get, get, n, n, tile=tile, **kw)
+            scr.set_prebuilt(*_host_block(packed, sizes_f, 0, n, device))
+        return scr.finish()
     stream = _streamer(packed, sizes_f, block, device)
-    tile = _packed_tile(bits, min_containment, block, streaming=True)
-    return _sweep(stream, stream, n, n, tile=tile, **kw)
+    queue = _TileQueue(bits, min_containment, block, k, streaming=True)
+    return _sweep(stream, stream, n, n, triangle=True, queue=queue,
+                  block=block)
 
 
 def screen_rectangle_packed(
@@ -323,25 +599,21 @@ def screen_rectangle_packed(
     qs = np.asarray(query_sizes).astype(np.float32)
     rs = np.asarray(ref_sizes).astype(np.float32)
     w = _row_width(query_packed)
-    kw = dict(triangle=False, block=block, k=k)
     padded_rows = -(-nq // block) * block + -(-nr // block) * block
-    if cache_blocks and padded_rows * w * 4 <= _device_resident_budget(device):
+    resident = (cache_blocks
+                and padded_rows * w * 4 <= _device_resident_budget(device))
+    queue = _TileQueue(bits, min_containment, block, k,
+                       streaming=not resident)
+    if resident:
         mat = np.stack([np.asarray(query_packed[t]) for t in range(nq)]
                        + [np.asarray(ref_packed[t]) for t in range(nr)])
-        x = words_to_torch(mat).to(device)
-        s = torch.from_numpy(np.concatenate([qs, rs])).to(device)
+        x = to_device(words_to_torch(mat).numpy(), device)
+        s = to_device(np.concatenate([qs, rs]), device)
         del mat
-        return _sweep(
-            _slicer(x[:nq], s[:nq], block), _slicer(x[nq:], s[nq:], block),
-            nq, nr,
-            tile=_packed_tile(bits, min_containment, block, streaming=False),
-            **kw,
-        )
-    return _sweep(
-        _streamer(query_packed, qs, block, device),
-        _streamer(ref_packed, rs, block, device),
-        nq, nr,
-        tile=_packed_tile(bits, min_containment, block, streaming=True),
-        **kw,
-    )
-
+        rows = _slicer(x[:nq], s[:nq], block)
+        cols = _slicer(x[nq:], s[nq:], block)
+    else:
+        rows = _streamer(query_packed, qs, block, device)
+        cols = _streamer(ref_packed, rs, block, device)
+    return _sweep(rows, cols, nq, nr, triangle=False, queue=queue,
+                  block=block)

@@ -2,7 +2,7 @@
 
     python -m galah_tpu_torch.tools.cli_ab OLD_TREE NEW_TREE
         [--corpus contigs|main] [--order ABBA] [--out DIR] [--platform gpu]
-        [--low-memory]
+        [--low-memory] [--env-b VAR=VALUE]
 
 A tree is a checkout of the repo (its root holds galah_tpu_torch/). A run
 is `python -m galah_tpu_torch cluster` in a fresh process started in that
@@ -16,11 +16,14 @@ genome corpus (128 families of 8 genomes of 1 Mb at 98% ANI, seed 11);
 A for the first tree and B for the second: ABBA runs each tree at both
 ends of the call, so a drift of the machine over the call shows as the
 difference between one tree's two runs. --low-memory passes the CLI's
-flag of that name to every run.
+flag of that name to every run. --env-b VAR=VALUE (repeatable) sets an
+environment variable for tree B's runs only: one tree twice, with
+--env-b GALAH_TPU_PIPELINE=0, sets its overlapped phases against its
+sequential ones.
 
 Prints a JSON line a run (the process's wall and peak resident set, from
 wait4's rusage, and from --metrics-json the CLI's wall, phases, every
-sketch_*_s span and the work counters), the
+sketch_*_s span, the work counters and the overlap counters), the
 card's name and power limit on a card, and a last JSON line with each
 tree's medians; exits 1 unless every run wrote the same clusters.tsv and
 counted the same work.
@@ -43,6 +46,9 @@ CORPORA = {"contigs": (20_000, 5, 5_000, 13), "main": (128, 8, 1_000_000, 11)}
 WORK = ("genomes_sketched", "contigs_sketched", "sketch_bases",
         "screen_pairs_computed", "verify_directed_pairtable",
         "verify_directed_grouped", "clusters")
+# Counters of how the phases ran, which may differ between runs.
+OVERLAP = ("phases_overlapped", "screen_rows_at_first_dispatch",
+           "screen_tiles")
 
 
 def make_corpus(kind: str, out: str, families: int, members: int,
@@ -61,10 +67,12 @@ def make_corpus(kind: str, out: str, families: int, members: int,
     return ["-d", directory, "-x", "fna"]
 
 
-def _env(tree: str, platform: str) -> Dict[str, str]:
+def _env(tree: str, platform: str,
+         extra: Dict[str, str] = None) -> Dict[str, str]:
     return dict(os.environ, GALAH_TPU_PLATFORM=platform,
                 PYTHONPATH=os.pathsep.join(
-                    p for p in (tree, os.environ.get("PYTHONPATH")) if p))
+                    p for p in (tree, os.environ.get("PYTHONPATH")) if p),
+                **(extra or {}))
 
 
 def build_kernels(tree: str) -> None:
@@ -87,9 +95,10 @@ def _run_measured(cmd: List[str], env: Dict[str, str], cwd: str) -> int:
 
 
 def run_cli(tree: str, inputs: List[str], out: str, tag: str,
-            platform: str, flags: List[str] = ()) -> dict:
+            platform: str, flags: List[str] = (),
+            env: Dict[str, str] = None) -> dict:
     """One `cluster` run of `tree`'s port in a fresh process, with the
-    CLI flags `flags`."""
+    CLI flags `flags` and the environment variables `env`."""
     tsv = os.path.join(out, f"{tag}.tsv")
     mjson = os.path.join(out, f"{tag}.json")
     tree = os.path.abspath(tree)
@@ -98,7 +107,7 @@ def run_cli(tree: str, inputs: List[str], out: str, tag: str,
            "--output-cluster-definition", tsv, "--metrics-json", mjson, "-q",
            *flags]
     t0 = time.perf_counter()
-    rss = _run_measured(cmd, _env(tree, platform), tree)
+    rss = _run_measured(cmd, _env(tree, platform, env), tree)
     wall = time.perf_counter() - t0
     with open(mjson) as f:
         m = json.load(f)
@@ -108,7 +117,9 @@ def run_cli(tree: str, inputs: List[str], out: str, tag: str,
             "wall_clock_s": m["wall_clock_s"], "phases_s": m["phases_s"],
             "sketch_s": {k[7:-2]: v for k, v in sorted(c.items())
                          if k.startswith("sketch_") and k.endswith("_s")},
-            "work": {k: c.get(k) for k in WORK}, "clusters_tsv": tsv}
+            "work": {k: c.get(k) for k in WORK},
+            "overlap": {k: c.get(k) for k in OVERLAP},
+            "env": dict(env or {}), "clusters_tsv": tsv}
 
 
 def medians(runs: List[dict]) -> dict:
@@ -138,7 +149,11 @@ def main(argv=None) -> int:
     ap.add_argument("--length", type=int)
     ap.add_argument("--low-memory", action="store_true",
                     help="run the CLI with --low-memory")
+    ap.add_argument("--env-b", action="append", default=[],
+                    metavar="VAR=VALUE",
+                    help="an environment variable of tree B's runs")
     args = ap.parse_args(argv)
+    envs = [{}, dict(kv.split("=", 1) for kv in args.env_b)]
     families, members, length, seed = CORPORA[args.corpus]
     out = os.path.abspath(args.out)
     os.makedirs(out, exist_ok=True)
@@ -154,7 +169,8 @@ def main(argv=None) -> int:
     for i, letter in enumerate(args.order):
         tree = args.trees["AB".index(letter)]
         runs.append(run_cli(tree, inputs, out, f"{i}{letter}", args.platform,
-                            ["--low-memory"] if args.low_memory else []))
+                            ["--low-memory"] if args.low_memory else [],
+                            envs["AB".index(letter)]))
         print(json.dumps(runs[-1]), flush=True)
     tsvs = set()
     for r in runs:

@@ -24,6 +24,16 @@ def words_to_torch(words: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(words.view(np.int32))
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array on `device`. A CUDA copy goes through pinned host
+    memory without blocking: a pageable copy would wait for every kernel
+    queued before it, and the screen keeps tiles in flight."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 tensor of values in [0, 2^32) -> int32 with the same low
     32 bits (exact two's-complement reinterpretation)."""

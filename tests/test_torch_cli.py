@@ -66,7 +66,8 @@ def test_clusters_tsv_identical_to_jax_package(corpus, tmp_path, monkeypatch):
 def _both_clis(argv, tmp_path, monkeypatch, screen, expect):
     """clusters.tsv of the JAX CLI and the port's on the same argv,
     after checking that the port ran the screen `expect` names, as
-    (function, cache_blocks)."""
+    (function, cache_blocks): a sequential screen, or the overlapped
+    phases (_run_pipelined)."""
     from galah_tpu_torch.engines import native
 
     calls = []
@@ -80,6 +81,8 @@ def _both_clis(argv, tmp_path, monkeypatch, screen, expect):
     for name in ("screen_triangle_packed", "screen_triangle_popcount",
                  "screen_rectangle_packed"):
         monkeypatch.setattr(native, name, spy(getattr(native, name)))
+    monkeypatch.setattr(native.NativePreclusterer, "_run_pipelined",
+                        spy(native.NativePreclusterer._run_pipelined))
     monkeypatch.setenv("GALAH_TPU_SCREEN", screen)
     monkeypatch.setenv("GALAH_TPU_VERIFY_DEVICES", "1")
     monkeypatch.delenv("GALAH_TPU_PLATFORM", raising=False)
@@ -171,8 +174,9 @@ def test_indicator_screen_is_refused(corpus, tmp_path, monkeypatch, capsys):
 def test_contig_mode_matches_jax_package(contig_corpus, tmp_path, monkeypatch,
                                          device_sketch):
     """--cluster-contigs --small-contigs: the port, sketching on the
-    "device" (the plain version of K5 on the CPU) or on the host, gives
-    the JAX CLI's clusters.tsv, one cluster per contig family."""
+    "device" (the plain version of K5 on the CPU, with the phases
+    overlapped) or on the host, gives the JAX CLI's clusters.tsv, one
+    cluster per contig family."""
     from galah_tpu_torch.ops import device_sketch as ds
 
     path, names, fams = contig_corpus
@@ -183,8 +187,9 @@ def test_contig_mode_matches_jax_package(contig_corpus, tmp_path, monkeypatch,
     real = ds.sketch_host_batch
     monkeypatch.setattr(ds, "sketch_host_batch",
                         lambda *a, **k: spied.append(1) or real(*a, **k))
-    tsv = _both_clis(argv, tmp_path, monkeypatch, "packed",
-                     ("screen_triangle_packed", True))
+    expect = (("_run_pipelined", None) if device_sketch == "1"
+              else ("screen_triangle_packed", True))
+    tsv = _both_clis(argv, tmp_path, monkeypatch, "packed", expect)
     assert bool(spied) == (device_sketch == "1")
     clusters = _families(tsv, names, fams)
     assert len(clusters) == 40

@@ -51,3 +51,23 @@ def test_low_memory_runs_report_their_peak_rss(tmp_path, capsys, monkeypatch):
     last = json.loads(lines[-1])
     assert last["low_memory"] is True
     assert last["medians"]["A"]["peak_rss_bytes"] == run["peak_rss_bytes"]
+
+
+def test_env_b_sets_the_pipeline_against_the_sequential_phases(
+        tmp_path, capsys, monkeypatch):
+    """One tree, its B runs with GALAH_TPU_PIPELINE=0: the A runs overlap
+    their phases, the B runs do not, and both write the same
+    clusters.tsv and work."""
+    monkeypatch.setenv("GALAH_TPU_DEVICE_SKETCH", "1")
+    rc = cli_ab.main([REPO, REPO, "--order", "AB", "--platform", "cpu",
+                      "--out", str(tmp_path), "--families", "6",
+                      "--members", "2", "--length", "3000",
+                      "--env-b", "GALAH_TPU_PIPELINE=0"])
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 0
+    a, b = [json.loads(x) for x in lines if x.startswith('{"run"')]
+    assert (a["env"], b["env"]) == ({}, {"GALAH_TPU_PIPELINE": "0"})
+    assert a["overlap"]["phases_overlapped"] == 1
+    assert a["overlap"]["screen_rows_at_first_dispatch"] == 12
+    assert b["overlap"]["phases_overlapped"] is None
+    assert a["work"] == b["work"]

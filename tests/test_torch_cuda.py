@@ -300,6 +300,120 @@ def test_verify_on_card_matches_cpu(cuda_device, tmp_path):
         assert cpu[key][1:] == gpu[key][1:], key
 
 
+def test_screen_issue_never_syncs(cuda_device):
+    """A window of screen tiles is issued (K1, containment, cutoff, hit
+    extraction and the copy home) under sync debug mode "error": the
+    issue step never waits for the card. The drained pairs equal the
+    same screen's on the CPU."""
+    from galah_tpu_torch.ops import prefilter as pf
+
+    ind, packed = _near_duplicate_rows(6, 3000, 400)
+    sizes = ind.sum(axis=1).astype(np.float32)
+    bits = ind.shape[1]
+    x = torch.from_numpy(np.stack(packed).view(np.int32)).to(cuda_device)
+    s = torch.from_numpy(sizes).to(cuda_device)
+    warm = pf.IncrementalPackedScreen(8, 15, 0.69, bits, cuda_device)
+    warm.set_prebuilt(x[:8].clone(), s[:8].clone())
+    warm.finish()
+    scr = pf.IncrementalPackedScreen(3000, 15, 0.69, bits, cuda_device)
+    assert scr.nblocks * (scr.nblocks + 1) // 2 <= pf.TILE_WINDOW
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scr.set_prebuilt(x, s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(scr._queue._pending) == 6
+    got = scr.finish()
+    want = pf.screen_triangle_packed(packed, sizes, 15, 0.69, bits,
+                                     device=CPU)
+    np.testing.assert_array_equal(got.pairs, want.pairs)
+    np.testing.assert_array_equal(got.ani_est, want.ani_est)
+    assert len(want.pairs) > 1000
+
+
+@pytest.mark.parametrize("window", ["1", "16"])
+def test_incremental_screen_on_card_matches_cpu(cuda_device, monkeypatch,
+                                                window):
+    """Rows fed out of order, device to device and from the host, with
+    tiles in flight: the card's pairs and ANI equal the CPU's sequential
+    sweep, including the streaming sweep's."""
+    from galah_tpu_torch.ops import prefilter as pf
+
+    monkeypatch.setenv("GALAH_TPU_PIPELINE_WINDOW", window)
+    ind, packed = _near_duplicate_rows(2, 700, 300)
+    sizes = ind.sum(axis=1)
+    x = torch.from_numpy(np.stack(packed).view(np.int32)).to(cuda_device)
+    scr = pf.IncrementalPackedScreen(700, 15, 0.69, ind.shape[1],
+                                     cuda_device, block=128)
+    order = np.random.default_rng(1).permutation(700)
+    for lo, hi in ((0, 250), (250, 251), (251, 600)):
+        idx = order[lo:hi].tolist()
+        scr.add_device_rows(idx, x, idx, [float(sizes[i]) for i in idx])
+    rest = order[600:].tolist()
+    scr.add_host_rows(rest, [packed[i] for i in rest],
+                      [float(sizes[i]) for i in rest])
+    got = scr.finish()
+    args = (packed, sizes, 15, 0.69, ind.shape[1])
+    want = pf.screen_triangle_packed(*args, device=CPU, block=128)
+    o = np.lexsort((got.pairs[:, 1], got.pairs[:, 0]))
+    w = np.lexsort((want.pairs[:, 1], want.pairs[:, 0]))
+    np.testing.assert_array_equal(got.pairs[o], want.pairs[w])
+    np.testing.assert_array_equal(got.ani_est[o], want.ani_est[w])
+    monkeypatch.setattr(pf, "TILE_WINDOW", int(window))
+    for cache_blocks in (True, False):
+        cpu = pf.screen_triangle_packed(*args, device=CPU, block=128,
+                                        cache_blocks=cache_blocks)
+        gpu = pf.screen_triangle_packed(*args, device=cuda_device, block=128,
+                                        cache_blocks=cache_blocks)
+        np.testing.assert_array_equal(gpu.pairs, cpu.pairs)
+        np.testing.assert_array_equal(gpu.ani_est, cpu.ani_est)
+
+
+def test_pipelined_distances_on_card_read_streams_from_the_arena(
+        cuda_device, tmp_path, monkeypatch):
+    """Device sketching with the phases overlapped on the card, every
+    verify stream read from the arena (uploads patched to raise), against
+    the CPU's sequential run on host sketches: the same pairs, ANI
+    within 1e-3 percentage points."""
+    from galah_tpu_torch.engines.native import (
+        NativeContext,
+        NativePreclusterer,
+    )
+    from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.ops import pair_table as pt
+    from galah_tpu_torch.ops import prefilter as pf
+    from galah_tpu_torch.utils import metrics
+    from galah_tpu_torch.utils.synth import make_families
+
+    paths, _ = make_families(str(tmp_path / "c"), 4, 4, genome_length=60_000,
+                             within_ani=0.97, seed=5)
+    monkeypatch.setattr(pf, "DEFAULT_BLOCK", 8)
+    for var in ("GALAH_TPU_PIPELINE", "GALAH_TPU_DEVICE_SKETCH",
+                "GALAH_TPU_ARENA", "GALAH_TPU_SCREEN"):
+        monkeypatch.delenv(var, raising=False)
+    out = []
+    for dev in (cuda_device, CPU):
+        m = metrics.reset()
+        pre = NativePreclusterer(90.0, 0.15,
+                                 NativeContext(dev, max_genome_length=60_000))
+        with monkeypatch.context() as mp:
+            if dev.type == "cuda":
+                def refuse(*a, **k):
+                    raise AssertionError("a fragment stream was uploaded")
+
+                mp.setattr(fa.StreamArena, "_fill_host", refuse)
+                mp.setattr(pt, "upload_streams", refuse)
+                mp.setattr(fa, "sketch_tensors", refuse)
+            out.append(dict(pre.distances(paths).items()))
+        assert m.counters.get("phases_overlapped") == (
+            1 if dev.type == "cuda" else None)
+    gpu, cpu = out
+    assert gpu.keys() == cpu.keys() and len(cpu) >= 4 * 6
+    for key in cpu:
+        assert abs(gpu[key] - cpu[key]) <= 1e-3, key
+
+
 COUNT_KERNELS = [
     pytest.param("galah_tpu_torch.ops.packed_matmul",
                  "packed_intersect_counts", 4, id="K1"),
