@@ -61,11 +61,28 @@ exits non-zero):
    stream arena with no reset; then once more with GALAH_TPU_PIPELINE=0,
    which must give the same candidate pairs and a byte-identical
    clusters.tsv;
-10. streaming at scale: 10,240 synthetic packed rows of 2^17 bits with
+10. resume: the resume artifacts on the contig corpus at full size, each
+   run's clusters.tsv byte-identical to phase 9's: (a) --sweep-checkpoint
+   C --sketch-directory D --output-distance-cache X, killed in-process at
+   screen tile 2,401 (exit 1; C must hold the drained tiles); (b) the
+   same flags without the crash: K1 launched once for each tile not in
+   C, the contig bundle written (its write time printed); (c) D alone:
+   K5 never launched, K1 once a tile, rows and verify streams uploaded
+   from the host (bytes and times printed); (d) D and the complete C: K1
+   and K5 never launched; (e) --input-distance-cache X: K1 never
+   launched;
+11. surface: on the main corpus, `process` with a synthetic CheckM2
+   report and precomputed barrnap/tRNAscan-SE lists (128 families, each
+   represented by its best genome), the library API's cluster_genomes
+   on the card (128 families), `cluster-validate` over the main path's
+   clusters.tsv (no problems), and --precluster-method finch
+   --cluster-method native over the first 32 families (32 families,
+   verify on the card);
+12. streaming at scale: 10,240 synthetic packed rows of 2^17 bits with
    200 planted near-duplicate pairs; the resident and streaming packed
    sweeps (55 tiles of 1024^2) give identical pairs and ANI, and the
    popcount screen (15 tiles of 2048^2) the same pair set;
-11. parity: a 64-genome 200 kb corpus through the port on the CPU (host
+13. parity: a 64-genome 200 kb corpus through the port on the CPU (host
    sketching) and on the card (device sketching), for the packed,
    popcount, reference and low-memory paths, and a 2,000-contig corpus
    in contig mode, must give the same candidate pairs, ANI within 1e-3
@@ -105,6 +122,7 @@ CONTIG_LENGTH = 5_000
 CONTIG_SEED = 13
 PARITY_CONTIGS = (400, 5)
 LOW_MEMORY_FAMILIES = 32       # --low-memory runs over these families only
+RESUME_CRASH_TILES = 2_400     # the resume phase's crash, about half the sweep
 K5_GENOMES = 8                 # main-corpus genomes of K5's check
 K5_MAIN_GENOMES = 64           # the main path's batch (64 MiB / 2^20)
 K5_CONTIGS = 2_000             # contig-corpus contigs of K5's check
@@ -694,10 +712,11 @@ def _launch_counters():
 
 
 def _run_cli(inputs, out_dir: str, tag: str, platform: str,
-             screen: str | None = None, flags=(), env=None):
+             screen: str | None = None, flags=(), env=None, expect_rc=0):
     """One `cluster` run, with the environment variables `env` set for
     it; returns (wall, metrics, clusters.tsv bytes, recording, {kernel:
-    launches in this run})."""
+    launches in this run}). A run expected to fail (expect_rc != 0)
+    returns None for the metrics and the clusters."""
     from galah_tpu_torch.cli.main import main
 
     tsv = os.path.join(out_dir, f"{tag}.tsv")
@@ -723,7 +742,9 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
     finally:
         for var in env:
             os.environ.pop(var, None)
-    check(rc == 0, f"{tag}: cluster exited {rc}")
+    check(rc == expect_rc, f"{tag}: cluster exited {rc}, want {expect_rc}")
+    if rc:
+        return wall, None, None, rec, launches
     with open(mjson) as f:
         run_metrics = json.load(f)
     with open(tsv, "rb") as f:
@@ -767,7 +788,11 @@ def _reference_inputs(work: str, tag: str, paths, fam_ids):
                   "--reference-genomes-list", ref_list]
 
 
-def _log_run(phase: str, wall: float, m: dict, launches: dict, rec) -> None:
+def _log_run(phase: str, wall: float, m: dict, launches: dict, rec,
+             screened: bool = True, verified: bool = True) -> None:
+    """Print a run's wall, phases, counters and launches, and check that
+    its screen (unless not `screened`: every tile replayed, or no screen)
+    and its verify (unless not `verified`) ran on the card."""
     import torch
 
     log(phase, f"wall {wall:.2f} s; phases {json.dumps(m['phases_s'])}")
@@ -781,6 +806,13 @@ def _log_run(phase: str, wall: float, m: dict, launches: dict, rec) -> None:
             "verify_directed_pairtable", "verify_directed_grouped",
             "verify_streams_uploaded", "stream_arena_resets", "clusters")
     }))
+    resume = {k: counters[k] for k in (
+        "screen_tiles_restored", "screen_host_row_bytes",
+        "screen_host_row_upload_s", "verify_stream_upload_bytes",
+        "verify_stream_upload_s", "sketch_bundle_read_s",
+        "sketch_bundle_write_s") if k in counters}
+    if resume:
+        log(phase, "resume counters (host clock, s) " + json.dumps(resume))
     if "sketch_device_batches" in counters:
         log(phase, "sketch split (s; lengths is the first pass over the "
                    "files, read the second, on the read-ahead thread beside "
@@ -796,8 +828,10 @@ def _log_run(phase: str, wall: float, m: dict, launches: dict, rec) -> None:
                f"{sorted(rec['screen_dev'])}; verify on "
                f"{sorted(rec['verify_dev'])}; peak device memory "
                f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    check(rec["screen_dev"] == {"cuda"}, f"screen ran on {rec['screen_dev']}")
-    check(rec["verify_dev"] == {"cuda"}, f"verify ran on {rec['verify_dev']}")
+    check(rec["screen_dev"] == ({"cuda"} if screened else set()),
+          f"screen ran on {rec['screen_dev']}")
+    check(rec["verify_dev"] == ({"cuda"} if verified else set()),
+          f"verify ran on {rec['verify_dev']}")
 
 
 def make_main_corpus(work: str):
@@ -971,10 +1005,10 @@ def _sorted_pairs(res):
     return res.pairs[o], res.ani_est[o]
 
 
-def phase_contig_path(work: str, path: str, names, fams) -> dict:
+def phase_contig_path(work: str, path: str, names, fams):
     """--cluster-contigs --small-contigs over the contig corpus, with the
     phases overlapped, then with GALAH_TPU_PIPELINE=0; returns the
-    overlapped run's launches."""
+    overlapped run's launches and clusters.tsv bytes."""
     import numpy as np
     import torch
 
@@ -1023,7 +1057,252 @@ def phase_contig_path(work: str, path: str, names, fams) -> dict:
     log("contigs", f"OK: GALAH_TPU_PIPELINE=0 gives the same {len(pp)} "
                    f"candidate pairs and clusters.tsv; wall {wall:.2f} s "
                    f"overlapped, {seq_wall:.2f} s sequential")
-    return launches
+    return launches, clusters, int(tiles)
+
+
+def _logged_tiles(path: str) -> int:
+    """Tiles held by a sweep checkpoint, read with the fingerprint its
+    header records."""
+    import struct
+
+    from galah_tpu_torch.ops.sweep_checkpoint import _MAGIC, SweepCheckpoint
+
+    with open(path, "rb") as f:
+        check(f.read(len(_MAGIC)) == _MAGIC, f"{path} is not a sweep log")
+        (n,) = struct.unpack("<i", f.read(4))
+        fingerprint = json.loads(f.read(n))
+    log_ = SweepCheckpoint(path, fingerprint)
+    try:
+        return len(log_)
+    finally:
+        log_.close()
+
+
+@contextlib.contextmanager
+def _crash_after(tiles: int):
+    """Make the screen raise when it issues tile tiles + 1 (K1's wrapper,
+    as the prefilter module calls it, is wrapped; the tiles before it
+    launch K1 as usual)."""
+    import galah_tpu_torch.ops.prefilter as pf
+
+    real = pf.packed_intersect_counts
+    issued = {"n": 0}
+
+    def crashing(a, b):
+        issued["n"] += 1
+        if issued["n"] > tiles:
+            raise RuntimeError(f"injected crash at screen tile {tiles + 1}")
+        return real(a, b)
+
+    pf.packed_intersect_counts = crashing
+    try:
+        yield
+    finally:
+        pf.packed_intersect_counts = real
+
+
+def phase_resume(work: str, path: str, names, fams, contig_tsv: bytes,
+                 contig_tiles: int) -> dict:
+    """The resume artifacts on the contig corpus at full size: (a) a run
+    with --sweep-checkpoint C --sketch-directory D --output-distance-cache
+    X killed in-process after RESUME_CRASH_TILES screen tiles; (b) the
+    same flags without the crash; (c) D alone; (d) D and the complete C;
+    (e) X. Each run's clusters.tsv must be phase 9's, with the launches
+    each must make. Returns {run: launches}."""
+    from galah_tpu_torch.ops.prefilter import _pipeline_window
+
+    ckpt, sk_dir = os.path.join(work, "resume.ckpt"), os.path.join(
+        work, "resume_sketches")
+    cache = os.path.join(work, "resume_distances.npz")
+    full = ["--sweep-checkpoint", ckpt, "--sketch-directory", sk_dir,
+            "--output-distance-cache", cache]
+    out = {}
+    with _crash_after(RESUME_CRASH_TILES):
+        wall, _, _, _, launches = _run_cli(
+            _contig_inputs(path), work, "resume_a", "gpu", flags=full,
+            expect_rc=1)
+    logged = _logged_tiles(ckpt)
+    log("resume", f"(a) killed after {launches['K1']} K1 launches in "
+                  f"{wall:.2f} s; the log holds {logged} tiles "
+                  f"({os.path.getsize(ckpt)} bytes)")
+    check(launches["K1"] == RESUME_CRASH_TILES,
+          f"(a) launched K1 {launches['K1']} times")
+    check(launches["K1"] - _pipeline_window() <= logged <= launches["K1"],
+          f"(a) logged {logged} of {launches['K1']} issued tiles")
+    out["a"] = launches
+    runs = (
+        ("b", full, contig_tiles - logged, None),
+        ("c", ["--sketch-directory", sk_dir], contig_tiles, 0),
+        ("d", ["--sketch-directory", sk_dir, "--sweep-checkpoint", ckpt],
+         0, 0),
+        ("e", ["--input-distance-cache", cache], 0, 0),
+    )
+    for tag, flags, k1, k5 in runs:
+        wall, m, clusters, rec, launches = _run_cli(
+            _contig_inputs(path), work, f"resume_{tag}", "gpu", flags=flags)
+        _log_run(f"resume-{tag}", wall, m, launches, rec, screened=k1 > 0,
+                 verified=tag != "e")
+        check(clusters == contig_tsv,
+              f"({tag}) clusters.tsv differs from phase 9's")
+        check(launches["K1"] == k1,
+              f"({tag}) launched K1 {launches['K1']} times, want {k1}")
+        check(k5 is None and launches["K5"] > 0 or launches["K5"] == k5,
+              f"({tag}) launched K5 {launches['K5']} times")
+        c = m["counters"]
+        if tag == "b":
+            bundles = os.listdir(sk_dir)
+            check(len(bundles) == 1, f"(b) wrote {bundles} to the directory")
+            size = os.path.getsize(os.path.join(sk_dir, bundles[0]))
+            log("resume", f"(b) bundle of {len(names)} contigs written in "
+                          f"{c['sketch_bundle_write_s']:.2f} s, {size} bytes; "
+                          f"distance cache {os.path.getsize(cache)} bytes")
+        if tag in ("c", "d"):
+            check(c.get("screen_rows_host_uploaded") == len(names)
+                  and c.get("verify_streams_uploaded", 0) > 0,
+                  f"({tag}) rows or streams were not uploaded from the host")
+            log("resume", f"({tag}) bundle read in "
+                          f"{c['sketch_bundle_read_s']:.2f} s; rows "
+                          f"{int(c['screen_host_row_bytes'])} bytes uploaded "
+                          f"in {c['screen_host_row_upload_s']:.3f} s, verify "
+                          f"streams {int(c['verify_stream_upload_bytes'])} "
+                          f"bytes in {c['verify_stream_upload_s']:.3f} s")
+        log("resume", f"({tag}) OK: clusters.tsv identical to phase 9's; K1 "
+                      f"{launches['K1']}, K5 {launches['K5']}; wall "
+                      f"{wall:.2f} s")
+        out[tag] = launches
+    return out
+
+
+def _annotation_inputs(work: str, paths):
+    """A synthetic CheckM2 report and barrnap/tRNAscan-SE output lists
+    for `paths`: member m of a family has completeness 60 + 4 m, so the
+    last member is each family's best. Returns the process flags."""
+    d = os.path.join(work, "annotations")
+    os.makedirs(d)
+    aas = ("Ala Arg Asn Asp Cys Gln Glu Gly His Ile Leu Lys Met Phe Pro "
+           "Ser Thr Trp Tyr Val").split()
+    report = os.path.join(d, "quality_report.tsv")
+    gffs, trnas = os.path.join(d, "gffs.tsv"), os.path.join(d, "trnas.tsv")
+    with open(report, "w") as q, open(gffs, "w") as g, open(trnas, "w") as t:
+        q.write("Name\tCompleteness\tContamination\tModel\n")
+        for i, p in enumerate(paths):
+            stem = os.path.splitext(os.path.basename(p))[0]
+            member = int(stem.rsplit("_m", 1)[1])
+            q.write(f"{stem}\t{60 + 4 * member}\t1.0\tGB\n")
+            gff, out = (os.path.join(d, f"{stem}.gff"),
+                        os.path.join(d, f"{stem}.trna"))
+            with open(gff, "w") as f:
+                f.write("##gff-version 3\n" + "".join(
+                    f"c1\tbarrnap\trRNA\t1\t9\t0\t+\t.\tName={r}_rRNA\n"
+                    for r in ("5S", "16S", "23S")[:1 + i % 3]))
+            with open(out, "w") as f:
+                f.write("h\nh\nh\n" + "".join(
+                    f"c1\t{j}\t1\t70\t{aa}\tNNN\t0\t0\t50.0\n"
+                    for j, aa in enumerate(aas[:10 + i % 11])))
+            g.write(f"{p}\t{gff}\n")
+            t.write(f"{p}\t{out}\n")
+    return ["--checkm2-quality-report", report, "--barrnap-gff-list", gffs,
+            "--trnascan-out-list", trnas]
+
+
+def _run_surface(tag: str, fn):
+    """fn() with every kernel's count set to 0 just before and read just
+    after; (wall, its result, recording, {kernel: launches})."""
+    counters = _launch_counters()
+    for k in counters.values():
+        k.launches = 0
+    with _recording() as rec:
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    log("surface", f"{tag}: wall {wall:.2f} s; kernel launches "
+                   f"{json.dumps(launches)}; verify on "
+                   f"{sorted(rec['verify_dev'])}")
+    check(rec["verify_dev"] == {"cuda"}, f"{tag}: verify ran on "
+                                         f"{rec['verify_dev']}")
+    return wall, res, rec, launches
+
+
+def phase_surface(work: str, corpus: str, paths, fam_ids,
+                  main_tsv: bytes) -> None:
+    """The rest of the port's surface on the main corpus: `process` with
+    a synthetic CheckM2 report and precomputed barrnap/tRNAscan-SE lists,
+    the API's cluster_genomes on the card, `cluster-validate` over the
+    main path's clusters.tsv, and --precluster-method finch
+    --cluster-method native over the first LOW_MEMORY_FAMILIES families.
+    Each must find the families."""
+    import torch
+
+    from galah_tpu_torch import api
+    from galah_tpu_torch.cli.main import build_parser, main
+    from galah_tpu_torch.cli.validate_cmd import run_validate
+
+    os.environ["GALAH_TPU_PLATFORM"] = "gpu"
+    threads = str(min(8, os.cpu_count() or 1))
+    flags = _annotation_inputs(work, paths)
+    mimag, tsv = (os.path.join(work, "process_mimag.tsv"),
+                  os.path.join(work, "process.tsv"))
+    _, rc, _, launches = _run_surface("process", lambda: main([
+        "process", "-d", corpus, "-x", "fna", "--ani", "95", "-t", threads,
+        "--output-mimag-summary", mimag, "--output-cluster-definition", tsv,
+        "-q", *flags]))
+    check(rc == 0, f"process exited {rc}")
+    check(launches["K1"] > 0 and launches["K5"] > 0,
+          f"process launches {launches}")
+    with open(tsv, "rb") as f:
+        clusters = f.read()
+    n = _families_exact(clusters, paths, fam_ids)
+    check(n == MAIN_GENOMES[0], f"process: {n} clusters")
+    best = f"_m{MAIN_GENOMES[1] - 1}.fna"
+    check(all(rep.endswith(best) for rep in _members(clusters)),
+          "process: a representative is not its family's best genome")
+    with open(mimag) as f:
+        rows = f.read().splitlines()[1:]
+    tiers = sorted({r.split("\t")[-1] for r in rows})
+    check(len(rows) == len(paths), f"process: {len(rows)} MIMAG rows")
+    log("surface", f"process OK: {n} clusters, each represented by its "
+                   f"family's best genome; MIMAG tiers {tiers}")
+
+    _, res, _, launches = _run_surface("api", lambda: api.cluster_genomes(
+        paths, api.ClusterParameters(ani=95, threads=int(threads)),
+        device=torch.device("cuda", 0)))
+    check(launches["K1"] > 0 and launches["K5"] > 0,
+          f"api launches {launches}")
+    n = _families_exact("".join(f"{r}\t{m}\n" for c in res.memberships()
+                                for r in c[:1] for m in c).encode(),
+                        paths, fam_ids)
+    check(n == MAIN_GENOMES[0], f"api: {n} clusters")
+    log("surface", f"api OK: cluster_genomes on the card, {n} clusters")
+
+    main_file = os.path.join(work, "main.tsv")
+    with open(main_file, "rb") as f:
+        check(f.read() == main_tsv, "the main path's clusters.tsv changed")
+    args = build_parser().parse_args([
+        "cluster-validate", "--cluster-file", main_file, "--ani", "95",
+        "--min-aligned-fraction", "15", "-t", threads, "-q"])
+    _, problems, _, _ = _run_surface("cluster-validate",
+                                     lambda: run_validate(args))
+    check(problems == 0, f"cluster-validate found {problems} problems")
+    log("surface", "cluster-validate OK: no problems in the main path's "
+                   "clusters.tsv")
+
+    keep = [i for i, f in enumerate(fam_ids) if f < LOW_MEMORY_FAMILIES]
+    sub_paths = [paths[i] for i in keep]
+    listing = os.path.join(work, "finch_genomes.txt")
+    with open(listing, "w") as f:
+        f.writelines(p + "\n" for p in sub_paths)
+    wall, m, clusters, rec, launches = _run_cli(
+        ["--genome-fasta-list", listing], work, "finch", "gpu",
+        flags=["--precluster-method", "finch", "--cluster-method", "native"])
+    check(rec["verify_dev"] == {"cuda"},
+          f"finch: verify on {rec['verify_dev']}")
+    n = _families_exact(clusters, sub_paths, [fam_ids[i] for i in keep])
+    check(n == LOW_MEMORY_FAMILIES, f"finch: {n} clusters")
+    log("surface", f"finch OK: {len(sub_paths)} genomes, {n} clusters, "
+                   f"verify on the card; wall {wall:.2f} s, phases "
+                   f"{json.dumps(m['phases_s'])}; kernel launches "
+                   f"{json.dumps(launches)}")
 
 
 def phase_scale() -> None:
@@ -1166,8 +1445,11 @@ def main() -> int:
         k2_launches = phase_popcount_path(work, corpus, main_tsv)
         phase_reference(work, paths, fam_ids)
         phase_low_memory(work, paths, fam_ids)
-        contig_launches = phase_contig_path(work, contig_path, contig_names,
-                                            contig_fams)
+        contig_launches, contig_tsv, contig_tiles = phase_contig_path(
+            work, contig_path, contig_names, contig_fams)
+        resume = phase_resume(work, contig_path, contig_names, contig_fams,
+                              contig_tsv, contig_tiles)
+        phase_surface(work, corpus, paths, fam_ids, main_tsv)
         phase_scale()
         phase_parity(work)
     print(json.dumps({"kernels": [
@@ -1178,6 +1460,7 @@ def main() -> int:
             "replaces": "galah_tpu/ops/packed_matmul.py:46",
             "launches": main_launches["K1"],
             "launches_contig_path": contig_launches["K1"],
+            "launches_resume_path": {k: v["K1"] for k, v in resume.items()},
             **kernels["packed_intersect_counts"],
         },
         {
@@ -1209,6 +1492,7 @@ def main() -> int:
             "replaces": "galah_tpu/ops/device_sketch.py:603",
             "launches": main_launches["K5"],
             "launches_contig_path": contig_launches["K5"],
+            "launches_resume_path": {k: v["K5"] for k, v in resume.items()},
             **k5,
         },
     ]}))

@@ -1,15 +1,23 @@
 """The `cluster` subcommand on the torch engine
 (counterpart of galah_tpu/cli/cluster_cmd.py).
 
-Argument parsing, quality filtering and output writing are copies of
-the JAX package's helpers (add_cluster_arguments,
-determine_small_genomes_setting, filter_genomes_through_quality,
-setup_galah_outputs, write_galah_outputs), unchanged; only the engine
-differs. The native engine is the only method. Genome mode, contig mode
-(--cluster-contigs with --small-contigs or --large-contigs),
-reference-genome mode (--reference-genomes, --reference-genomes-list)
-and --low-memory run; other precluster/cluster methods and the modes
-the port has not reached raise "not yet supported".
+Argument parsing, quality filtering, the engine factory's method
+dispatch, the distance caches and output writing are copies of the JAX
+package's (add_cluster_arguments, determine_small_genomes_setting,
+filter_genomes_through_quality, generate_galah_clusterer,
+_RecordingPreclusterer, _PrecomputedPreclusterer, setup_galah_outputs,
+write_galah_outputs); only the native engine differs. Every mode runs:
+genome, contig (--cluster-contigs with --small-contigs or
+--large-contigs), reference-genome (--reference-genomes,
+--reference-genomes-list) and --low-memory; the precluster methods
+native, finch and skani and the cluster methods native, skani and
+fastani; the resume artifacts --sketch-directory, --sweep-checkpoint,
+--output-distance-cache and --input-distance-cache, in the JAX
+package's file formats.
+
+The device is resolved only when a native engine is built, so a
+finch/skani/fastANI run never touches the card; a native run stops
+without a CUDA device unless GALAH_TPU_PLATFORM=cpu.
 """
 
 from __future__ import annotations
@@ -34,34 +42,10 @@ from galah_tpu_torch.cli.common import (
     set_log_level,
 )
 from galah_tpu_torch.cluster.greedy import cluster as run_clustering
-from galah_tpu_torch.engines.native import (
-    NativeClusterer,
-    NativeContext,
-    NativePreclusterer,
-    not_supported,
-)
 from galah_tpu_torch.io.fasta import decompressed_size_estimate, read_fasta
 from galah_tpu_torch.utils import metrics
 
 logger = logging.getLogger(__name__)
-
-# (argument attribute, flag) of the modes the port refuses.
-_UNSUPPORTED_FLAGS = (
-    ("sketch_directory", "--sketch-directory"),
-    ("sweep_checkpoint", "--sweep-checkpoint"),
-    ("output_distance_cache", "--output-distance-cache"),
-    ("input_distance_cache", "--input-distance-cache"),
-)
-
-
-def _refuse_unsupported(args: argparse.Namespace) -> None:
-    for attr, flag in _UNSUPPORTED_FLAGS:
-        if getattr(args, attr, None):
-            raise not_supported(flag)
-    for attr, flag in (("precluster_method", "--precluster-method"),
-                       ("cluster_method", "--cluster-method")):
-        if getattr(args, attr) != "native":
-            raise not_supported(f"{flag} {getattr(args, attr)}")
 
 
 def add_cluster_arguments(sub: argparse.ArgumentParser) -> None:
@@ -182,7 +166,10 @@ def add_cluster_arguments(sub: argparse.ArgumentParser) -> None:
                              "the sketch/screen/verify phases (genome list must match)")
 
 
-def run_cluster(args: argparse.Namespace, device: torch.device) -> None:
+def run_cluster(args: argparse.Namespace,
+                device: Optional[torch.device] = None) -> None:
+    """The `cluster` subcommand. device: where a native engine runs;
+    None resolves it (utils/device.py) when one is built."""
     set_log_level(args)
     run_metrics = metrics.reset()
     genome_fasta_files = parse_list_of_genome_fasta_files(args)
@@ -206,14 +193,15 @@ def run_cluster(args: argparse.Namespace, device: torch.device) -> None:
         genome_fasta_files = list(reference_genomes) + genome_fasta_files
 
     galah = generate_galah_clusterer(
-        genome_fasta_files, args, device, reference_genomes, cluster_contigs
+        genome_fasta_files, args, device, reference_genomes, cluster_contigs,
+        injected_quality_report=getattr(args, "_injected_quality_report",
+                                        None),
     )
 
     # Open outputs before heavy compute, as the reference does.
     outputs = setup_galah_outputs(args)
 
-    logger.info("Clustering %d genomes on %s ..",
-                len(galah["genome_fasta_paths"]), device)
+    logger.info("Clustering %d genomes ..", len(galah["genome_fasta_paths"]))
     clusters = run_clustering(
         galah["genome_fasta_paths"],
         galah["preclusterer"],
@@ -286,19 +274,116 @@ def _reference_genomes(args: argparse.Namespace) -> Optional[List[str]]:
     return None
 
 
+class _RecordingPreclusterer:
+    """Wraps a preclusterer and saves its sparse result to disk: the
+    phase checkpoint of --output-distance-cache. Records the flags the
+    pairs were filtered under (threshold, min-AF, method, mode) so that
+    the resume path can refuse an incompatible run."""
+
+    def __init__(
+        self,
+        inner,
+        out_path: str,
+        threshold: Optional[float] = None,
+        min_af: Optional[float] = None,
+    ) -> None:
+        self._inner = inner
+        self._out_path = out_path
+        self._threshold = threshold
+        self._min_af = min_af
+        self.supports_contigs = getattr(inner, "supports_contigs", True)
+
+    def _save(self, cache, names, mode):
+        from galah_tpu_torch.sketch.store import save_distance_cache
+
+        save_distance_cache(
+            cache, self._out_path, names=names, threshold=self._threshold,
+            min_af=self._min_af, method=self._inner.method_name(), mode=mode,
+        )
+        logger.info("Saved distance cache (%d pairs) to %s", len(cache),
+                    self._out_path)
+
+    def distances(self, paths):
+        cache = self._inner.distances(paths)
+        self._save(cache, paths, "triangle")
+        return cache
+
+    def distances_contigs(self, paths, contig_names):
+        cache = self._inner.distances_contigs(paths, contig_names)
+        self._save(cache, contig_names, "contigs")
+        return cache
+
+    def distances_with_references(self, paths, refs):
+        cache = self._inner.distances_with_references(paths, refs)
+        self._save(cache, paths, "references")
+        return cache
+
+    def method_name(self):
+        return self._inner.method_name()
+
+
+class _PrecomputedPreclusterer:
+    """Serves a previously saved distance cache, remapped by unit name
+    to the current ordering: the --input-distance-cache resume path."""
+
+    supports_contigs = True
+
+    def __init__(self, cache, names, method_name: str) -> None:
+        self._old_index = {n: i for i, n in enumerate(names)}
+        self._cache = cache
+        self._method = method_name
+
+    def _remap(self, units):
+        from galah_tpu_torch.cluster.cache import SortedPairDistanceCache
+
+        missing = [u for u in units if u not in self._old_index]
+        if missing:
+            raise SystemExit(
+                f"--input-distance-cache does not cover {len(missing)} input "
+                f"unit(s), e.g. {missing[0]}"
+            )
+        new_of_old = {}
+        for new_i, u in enumerate(units):
+            new_of_old[self._old_index[u]] = new_i
+        out = SortedPairDistanceCache()
+        for (i, j), v in self._cache.items():
+            if i in new_of_old and j in new_of_old:
+                out.insert((new_of_old[i], new_of_old[j]), v)
+        return out
+
+    def distances(self, paths):
+        return self._remap(list(paths))
+
+    def distances_contigs(self, paths, contig_names):
+        return self._remap(list(contig_names))
+
+    def distances_with_references(self, paths, refs):
+        return self._remap(list(paths))
+
+    def method_name(self):
+        return self._method
+
+
 def generate_galah_clusterer(
     genome_fasta_paths: List[str],
     args: argparse.Namespace,
-    device: torch.device,
+    device: Optional[torch.device] = None,
     reference_genomes: Optional[List[str]] = None,
     cluster_contigs: bool = False,
+    injected_quality_report: Optional[str] = None,
 ) -> dict:
-    """Quality-order genomes and construct the native engine pair. Both
-    methods are native, so the precluster pass runs at the final ANI.
-    Reference genomes that fail the quality filter are dropped; in
-    contig mode the files keep their order."""
-    _refuse_unsupported(args)
-    v2 = filter_genomes_through_quality(genome_fasta_paths, args, None,
+    """Quality-order genomes and construct the engine pair (the JAX
+    package's method dispatch). When the precluster and cluster methods
+    coincide the precluster pass runs at the final ANI, otherwise at
+    --precluster-ani. Reference genomes that fail the quality filter are
+    dropped; in contig mode the files keep their order. The native
+    engines share one NativeContext, built on `device` (None: resolved
+    then) only when a native method is chosen. --input-distance-cache
+    replaces the preclusterer after checking the cache's recorded flags;
+    --output-distance-cache wraps it."""
+    skip_clusterer = args.precluster_method == args.cluster_method
+    v2 = filter_genomes_through_quality(genome_fasta_paths, args,
+                                        injected_quality_report,
                                         cluster_contigs)
     small_genomes = determine_small_genomes_setting(args, cluster_contigs)
     if reference_genomes is not None:
@@ -306,42 +391,188 @@ def generate_galah_clusterer(
         reference_genomes = [r for r in reference_genomes if r in passing]
 
     ani = parse_percentage(args.ani, "ani")
+    precluster_ani = parse_percentage(args.precluster_ani, "precluster-ani")
     min_af = parse_percentage(args.min_aligned_fraction, "min-aligned-fraction")
-    threshold_pct = ani * 100.0
+    pre_threshold_pct = (ani if skip_clusterer else precluster_ani) * 100.0
 
-    # Approximate the largest genome from file sizes so bitmap widths
-    # fit the dataset (the reference's rule).
-    try:
-        max_len = max(decompressed_size_estimate(p) for p in v2) if v2 else None
-    except OSError:
-        max_len = None
-    ctx = NativeContext(
-        device,
-        small_genomes=small_genomes,
-        fragment_length=args.fragment_length,
-        threads=args.threads,
-        low_memory=args.low_memory,
-        max_genome_length=max_len,
+    native_ctx = None
+
+    def get_native_ctx():
+        nonlocal native_ctx
+        if native_ctx is None:
+            from galah_tpu_torch.engines.native import NativeContext
+            from galah_tpu_torch.utils.device import resolve_device
+
+            # Approximate the largest genome from file sizes so bitmap
+            # widths fit the dataset (the reference's rule).
+            try:
+                max_len = (max(decompressed_size_estimate(p) for p in v2)
+                           if v2 else None)
+            except OSError:
+                max_len = None
+            native_ctx = NativeContext(
+                device if device is not None else resolve_device(),
+                small_genomes=small_genomes,
+                fragment_length=args.fragment_length,
+                threads=args.threads,
+                low_memory=args.low_memory,
+                max_genome_length=max_len,
+                sketch_directory=getattr(args, "sketch_directory", None),
+            )
+            logger.info("Native engine on %s", native_ctx.device)
+        return native_ctx
+
+    ani_semantics = getattr(args, "ani_semantics",
+                            defaults.DEFAULT_ANI_SEMANTICS)
+    if (ani_semantics == "window"
+            and "native" in (args.precluster_method, args.cluster_method)
+            and min(ani, precluster_ani) * 100.0 < 99.0):
+        logger.info(
+            "ANI thresholds use the native estimator's window "
+            "(event-inclusive) semantics; vs gap-excluded skani ANI "
+            "they read ~0.1x(100-ANI) lower on typical indel loads. "
+            "Use --ani-semantics skani-calibrated to reproduce "
+            "gap-excluded cuts."
+        )
+    elif (ani_semantics == "skani-calibrated"
+          and args.precluster_method == "native"):
+        logger.info(
+            "skani-calibrated thresholds assume a fixed typical indel "
+            "load (%g indel events per substitution, mean length %g); "
+            "the native preclustering pass reports this corpus's "
+            "apparent load after verification.",
+            defaults.CALIBRATION_INDEL_EVENTS_PER_SUB,
+            defaults.CALIBRATION_MEAN_INDEL_LEN,
+        )
+
+    if args.precluster_method == "native":
+        from galah_tpu_torch.engines.native import NativePreclusterer
+
+        preclusterer = NativePreclusterer(
+            threshold=pre_threshold_pct,
+            min_aligned_threshold=min_af,
+            ctx=get_native_ctx(),
+            ani_semantics=ani_semantics,
+            sweep_checkpoint=getattr(args, "sweep_checkpoint", None),
+        )
+    elif args.precluster_method == "finch":
+        from galah_tpu_torch.engines.finch_like import FinchPreclusterer
+
+        preclusterer = FinchPreclusterer(
+            min_ani=precluster_ani,
+            low_memory=args.low_memory,
+            threads=args.threads,
+        )
+    elif args.precluster_method == "skani":
+        from galah_tpu_torch.engines.subprocess_backends import (
+            SkaniPreclusterer,
+        )
+
+        preclusterer = SkaniPreclusterer(
+            threshold=pre_threshold_pct,
+            min_aligned_threshold=min_af,
+            small_genomes=small_genomes,
+            threads=args.threads,
+            low_memory=args.low_memory,
+        )
+    else:
+        raise SystemExit(f"Unknown precluster method {args.precluster_method}")
+
+    if args.cluster_method == "native":
+        from galah_tpu_torch.engines.native import NativeClusterer
+
+        clusterer = NativeClusterer(
+            threshold=ani * 100.0,
+            min_aligned_threshold=min_af,
+            ctx=get_native_ctx(),
+            ani_semantics=ani_semantics,
+        )
+    elif args.cluster_method == "skani":
+        from galah_tpu_torch.engines.subprocess_backends import SkaniClusterer
+
+        clusterer = SkaniClusterer(
+            threshold=ani * 100.0,
+            min_aligned_threshold=min_af,
+            small_genomes=small_genomes,
+        )
+    elif args.cluster_method == "fastani":
+        from galah_tpu_torch.engines.subprocess_backends import (
+            FastaniClusterer,
+        )
+
+        clusterer = FastaniClusterer(
+            threshold=ani * 100.0,
+            min_aligned_threshold=min_af,
+            fraglen=(args.fragment_length
+                     if args.fragment_length is not None
+                     else defaults.DEFAULT_FRAGMENT_LENGTH),
+        )
+    else:
+        raise SystemExit(f"Unknown cluster method {args.cluster_method}")
+
+    run_mode = (
+        "references" if reference_genomes is not None
+        else "contigs" if cluster_contigs else "triangle"
     )
-    ani_semantics = getattr(args, "ani_semantics", defaults.DEFAULT_ANI_SEMANTICS)
-    preclusterer = NativePreclusterer(
-        threshold=threshold_pct,
-        min_aligned_threshold=min_af,
-        ctx=ctx,
-        ani_semantics=ani_semantics,
-    )
-    clusterer = NativeClusterer(
-        threshold=threshold_pct,
-        min_aligned_threshold=min_af,
-        ctx=ctx,
-        ani_semantics=ani_semantics,
-    )
+    if getattr(args, "input_distance_cache", None):
+        preclusterer = _precomputed(args, pre_threshold_pct, min_af,
+                                    run_mode)
+    elif getattr(args, "output_distance_cache", None):
+        preclusterer = _RecordingPreclusterer(
+            preclusterer, args.output_distance_cache,
+            threshold=pre_threshold_pct, min_af=min_af,
+        )
+
     return {
         "genome_fasta_paths": v2,
         "preclusterer": preclusterer,
         "clusterer": clusterer,
         "reference_genomes": reference_genomes,
     }
+
+
+def _precomputed(args: argparse.Namespace, pre_threshold_pct: float,
+                 min_af: float, run_mode: str) -> _PrecomputedPreclusterer:
+    """The --input-distance-cache preclusterer, after refusing a cache
+    recorded at a higher ANI threshold or at another AF, method or mode,
+    with the JAX package's messages. A changed AF, method or mode
+    changes which pairs the recording run emitted; a cache that predates
+    a field (None) skips its check."""
+    from galah_tpu_torch.sketch.store import load_distance_cache
+
+    logger.info("Loading distance cache from %s", args.input_distance_cache)
+    cache, names, meta = load_distance_cache(args.input_distance_cache)
+    if names is None:
+        raise SystemExit(
+            "The distance cache has no unit names and cannot be remapped"
+        )
+    saved_threshold = meta["threshold"]
+    if (saved_threshold is not None
+            and pre_threshold_pct < saved_threshold - 1e-6):
+        raise SystemExit(
+            f"--input-distance-cache was recorded at ANI {saved_threshold:g} "
+            f"but this run needs pairs down to {pre_threshold_pct:g}; "
+            "re-run without the cache to recompute"
+        )
+    if meta["min_af"] is not None and abs(meta["min_af"] - min_af) > 1e-9:
+        raise SystemExit(
+            f"--input-distance-cache was recorded at --min-aligned-"
+            f"fraction {meta['min_af']:g} but this run uses {min_af:g}; "
+            "re-run without the cache to recompute"
+        )
+    if meta["method"] is not None and meta["method"] != args.precluster_method:
+        raise SystemExit(
+            f"--input-distance-cache was recorded with precluster "
+            f"method '{meta['method']}' but this run uses "
+            f"'{args.precluster_method}'; re-run without the cache"
+        )
+    if meta["mode"] is not None and meta["mode"] != run_mode:
+        raise SystemExit(
+            f"--input-distance-cache was recorded in {meta['mode']} "
+            f"mode but this run is {run_mode} mode; re-run without "
+            "the cache"
+        )
+    return _PrecomputedPreclusterer(cache, names, args.precluster_method)
 
 
 def determine_small_genomes_setting(args: argparse.Namespace, cluster_contigs: bool) -> bool:

@@ -1,5 +1,10 @@
-"""Top-level CLI of the port: the `cluster` subcommand
-(counterpart of galah_tpu/cli/main.py)."""
+"""Top-level CLI of the port: cluster / cluster-validate / analyse /
+process (counterpart of galah_tpu/cli/main.py, without its TPU-only
+compile-cache and jax.config lines).
+
+A subcommand resolves the device (utils/device.py) only when it builds
+a native engine, so analyse and the finch/skani/fastANI methods never
+touch the card."""
 
 from __future__ import annotations
 
@@ -11,7 +16,10 @@ from galah_tpu_torch import __version__
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from galah_tpu_torch.cli.analyse_cmd import add_analyse_arguments
     from galah_tpu_torch.cli.cluster_cmd import add_cluster_arguments
+    from galah_tpu_torch.cli.process_cmd import add_process_arguments
+    from galah_tpu_torch.cli.validate_cmd import add_validate_arguments
 
     parser = argparse.ArgumentParser(
         prog="galah-tpu-torch",
@@ -22,6 +30,15 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="subcommand", metavar="SUBCOMMAND")
     cluster_p = sub.add_parser("cluster", help="Cluster (dereplicate) genomes")
     add_cluster_arguments(cluster_p)
+    validate_p = sub.add_parser("cluster-validate",
+                                help="Verify clustering results")
+    add_validate_arguments(validate_p)
+    analyse_p = sub.add_parser(
+        "analyse", help="Analyse rRNAs/tRNAs of FASTA files for MIMAG status")
+    add_analyse_arguments(analyse_p)
+    process_p = sub.add_parser("process",
+                               help="Analyse and cluster genomes in one run")
+    add_process_arguments(process_p)
     return parser
 
 
@@ -32,10 +49,22 @@ def main(argv=None) -> int:
         parser.print_help()
         return 2
     try:
-        from galah_tpu_torch.cli.cluster_cmd import run_cluster
-        from galah_tpu_torch.utils.device import resolve_device
+        if args.subcommand == "cluster":
+            from galah_tpu_torch.cli.cluster_cmd import run_cluster
 
-        run_cluster(args, resolve_device())
+            run_cluster(args)
+        elif args.subcommand == "cluster-validate":
+            from galah_tpu_torch.cli.validate_cmd import run_validate
+
+            run_validate(args)
+        elif args.subcommand == "analyse":
+            from galah_tpu_torch.cli.analyse_cmd import run_analyse
+
+            run_analyse(args)
+        else:
+            from galah_tpu_torch.cli.process_cmd import run_process
+
+            run_process(args)
     except (OSError, KeyError, ValueError, RuntimeError) as e:
         # One-line errors for user-facing failures; full traceback with
         # GALAH_TPU_DEBUG=1.

@@ -32,10 +32,21 @@ the same.
 mode), and `distances_with_references()` screens the (query, reference)
 rectangle instead (reference-genome mode). In low-memory mode sketches
 live in a disk store with a 64-sketch working set, the screens stream
-their blocks from the host, and verify runs in chunks of 64 genomes. The
-reference engine's other modes (the persistent sketch directory, the
-mid-sweep checkpoint, the u8 indicator screen) raise "not yet
-supported".
+their blocks from the host, and verify runs in chunks of 64 genomes.
+
+The resume artifacts are the JAX package's, in its file formats:
+- a persistent sketch directory (NativeContext(sketch_directory=),
+  --sketch-directory): genome sketches in a PersistentSketchStore (its
+  working set 64 sketches under --low-memory, else unbounded), contig
+  sketches as one bundle per input FASTA. Sketches read from it are not
+  device-born: their screen rows and verify streams are uploaded from
+  the host;
+- the mid-sweep checkpoint (NativePreclusterer(sweep_checkpoint=),
+  --sweep-checkpoint) of the resident packed triangle sweep, sequential
+  or pipelined (ops/sweep_checkpoint.py). The popcount screen, the
+  streaming (low-memory) sweep and the reference rectangle warn that
+  they do not checkpoint.
+The reference engine's u8 indicator screen raises "not yet supported".
 """
 
 from __future__ import annotations
@@ -72,7 +83,14 @@ from galah_tpu_torch.sketch.fracminhash import (
     sketch_file_native,
     small_genome_params,
 )
-from galah_tpu_torch.sketch.store import DiskSketchStore
+from galah_tpu_torch.sketch.store import (
+    DiskSketchStore,
+    PersistentSketchStore,
+    _file_sig,
+    _stable_sketch_name,
+    load_contig_sketches,
+    save_contig_sketches,
+)
 from galah_tpu_torch.utils import metrics
 from galah_tpu_torch.utils.convert import pack_indicator, words_to_torch
 
@@ -340,7 +358,10 @@ class _VerifyFeeder:
 
 class NativeContext:
     """Shared state: sketch params, the sketch store, and the
-    fragment-ANI engine on `device`."""
+    fragment-ANI engine on `device`. sketch_directory: the persistent
+    cross-run sketch cache (--sketch-directory), keyed by unit,
+    parameters and source-file signature, so a re-run reuses its
+    sketches instead of sketching again."""
 
     def __init__(
         self,
@@ -351,6 +372,7 @@ class NativeContext:
         low_memory: bool = False,
         params: Optional[NativeSketchParams] = None,
         max_genome_length: Optional[int] = None,
+        sketch_directory: Optional[str] = None,
     ) -> None:
         if params is not None:
             self.params = params
@@ -368,7 +390,17 @@ class NativeContext:
         self._sketched_any = False
         self.threads = max(1, threads)
         self.low_memory = low_memory
-        if low_memory:
+        self.sketch_directory = sketch_directory
+        if sketch_directory:
+            # Under --low-memory the directory is also the spill target
+            # (a bounded working set); otherwise every sketch stays
+            # resident and the disk copy is the reusable artifact.
+            self._store = PersistentSketchStore(
+                sketch_directory, self.params,
+                max_resident=(LOW_MEMORY_VERIFY_KEYS if low_memory
+                              else 1 << 31),
+            )
+        elif low_memory:
             # Disk-backed sketch store with a 64-sketch LRU working set,
             # in a temporary directory removed with the context.
             self._spill_dir = tempfile.TemporaryDirectory(
@@ -558,10 +590,15 @@ class NativeContext:
                        extra_sink=None) -> List[NativeSketch]:
         """One sketch per contig, across files, in file order (the unit
         order of the reference's contig mode). Contig sketches stay in
-        memory in every mode, as in the reference. extra_sink: as in
-        sketch_many."""
+        memory in every mode, as in the reference. With a sketch
+        directory each file's sketches are read from its bundle when one
+        is there, and bundles are written for the files sketched
+        (sketch_bundle_read_s / sketch_bundle_write_s time them).
+        extra_sink: as in sketch_many."""
         missing = [p for p in dict.fromkeys(paths)
                    if p not in self._contig_store]
+        if missing and self.sketch_directory:
+            missing = self._load_contig_bundles(missing)
         if missing:
             self._sketched_any = True
             with metrics.current().phase("sketch"):
@@ -575,7 +612,44 @@ class NativeContext:
             metrics.current().count(
                 "contigs_sketched",
                 sum(len(self._contig_store[p]) for p in missing))
+            if self.sketch_directory:
+                t0 = time.perf_counter()
+                for p in missing:
+                    save_contig_sketches(self._contig_bundle_path(p),
+                                         self._contig_store[p])
+                metrics.current().count("sketch_bundle_write_s",
+                                        time.perf_counter() - t0)
         return [sk for p in paths for sk in self._contig_store[p]]
+
+    def _load_contig_bundles(self, paths: Sequence[str]) -> List[str]:
+        """Read the bundle of each path that has one in the sketch
+        directory; the paths still to sketch. An unreadable bundle is
+        ignored with a warning."""
+        t0 = time.perf_counter()
+        still = []
+        for p in paths:
+            bp = self._contig_bundle_path(p)
+            if os.path.exists(bp):
+                try:
+                    self._contig_store[p] = load_contig_sketches(bp)
+                    continue
+                except Exception as e:
+                    logger.warning("ignoring unreadable contig sketch "
+                                   "bundle %s: %r", bp, e)
+            still.append(p)
+        if len(still) < len(paths):
+            metrics.current().count("sketch_bundle_read_s",
+                                    time.perf_counter() - t0)
+            logger.info("Reused contig sketches for %d/%d files from %s",
+                        len(paths) - len(still), len(paths),
+                        self.sketch_directory)
+        return still
+
+    def _contig_bundle_path(self, path: str) -> str:
+        """The content-stable bundle name of one FASTA's contig
+        sketches: the JAX package's, so either reads the other's."""
+        return os.path.join(self.sketch_directory, _stable_sketch_name(
+            "contigs:" + path, self.params, _file_sig(path)))
 
     def _sketch_contigs_on_device(self, missing: Sequence[str],
                                   sink) -> None:
@@ -596,9 +670,13 @@ class NativePreclusterer(PreclusterDistanceFinder):
         min_aligned_threshold: float,
         ctx: NativeContext,
         ani_semantics: str = defaults.DEFAULT_ANI_SEMANTICS,
+        sweep_checkpoint: Optional[str] = None,
     ) -> None:
         """threshold: percent (e.g. 95.0); min_aligned_threshold:
-        fraction (e.g. 0.15)."""
+        fraction (e.g. 0.15). sweep_checkpoint: path of the mid-sweep
+        tile log (ops/sweep_checkpoint.py): drained screen tiles are
+        logged as they come and a killed sweep resumes from them, with
+        byte-identical results."""
         if threshold < defaults.MIN_SUPPORTED_PRECLUSTER_ANI:
             raise ValueError(
                 "Error: the native engine produces inaccurate results with ANI "
@@ -609,6 +687,7 @@ class NativePreclusterer(PreclusterDistanceFinder):
         )
         self.min_aligned_threshold = min_aligned_threshold
         self.ctx = ctx
+        self.sweep_checkpoint = sweep_checkpoint
         # Sizes the prefilter bitmap for the requested AF before any
         # sketching (the width shapes the sketches).
         ctx._widen_for_low_af(min_aligned_threshold, threshold)
@@ -673,7 +752,8 @@ class NativePreclusterer(PreclusterDistanceFinder):
             idxs_by_key.setdefault(p, []).append(i)
         return self._run_pipelined(
             len(paths), idxs_by_key,
-            lambda feed: self.ctx.sketch_many(paths, extra_sink=feed))
+            lambda feed: self.ctx.sketch_many(paths, extra_sink=feed),
+            list(paths))
 
     def _distances_contigs_pipelined(
         self, paths: Sequence[str], contig_names: Sequence[str]
@@ -685,10 +765,12 @@ class NativePreclusterer(PreclusterDistanceFinder):
             idxs_by_key.setdefault(nm, []).append(i)
         return self._run_pipelined(
             len(contig_names), idxs_by_key,
-            lambda feed: self._contig_sketches(paths, contig_names, feed))
+            lambda feed: self._contig_sketches(paths, contig_names, feed),
+            list(contig_names))
 
     def _run_pipelined(
         self, n: int, idxs_by_key: Dict[str, List[int]], sketch_call,
+        unit_names: Sequence[str],
     ) -> SortedPairDistanceCache:
         """Sketch, screen and verify overlapped: the sketch sink adds
         each batch's device-born prefilter rows to an
@@ -700,7 +782,9 @@ class NativePreclusterer(PreclusterDistanceFinder):
         inside the sketch phase), and phases_overlapped = 1 says the
         phases overlap; screen_rows_at_first_dispatch counts the rows
         fed when the first tile was issued. Results equal the
-        sequential path's. A failure anywhere propagates."""
+        sequential path's. unit_names key the sweep checkpoint's
+        fingerprint. A failure anywhere propagates, after the screen
+        released its tiles in flight and its checkpoint."""
         ctx = self.ctx
         k = ctx.params.k
         bits = ctx.params.prefilter_bits
@@ -709,58 +793,68 @@ class NativePreclusterer(PreclusterDistanceFinder):
         )
         logger.info("Sketching, screening and verifying %d units "
                     "(overlapped) ..", n)
-        scr = IncrementalPackedScreen(n, k, min_cont, bits, ctx.device)
-        # A tile is issued only once its row blocks were fed, and every
-        # feed records its sketches first, so a drained pair's sketches
-        # are here.
-        sk_by_idx: Dict[int, NativeSketch] = {}
-        feeder = _VerifyFeeder(self, sk_by_idx.__getitem__)
-        scr.on_pairs = feeder.feed
+        scr = IncrementalPackedScreen(n, k, min_cont, bits, ctx.device,
+                                      checkpoint_path=self.sweep_checkpoint,
+                                      unit_names=unit_names)
+        try:
+            # A tile is issued only once its row blocks were fed, and every
+            # feed records its sketches first, so a drained pair's sketches
+            # are here.
+            sk_by_idx: Dict[int, NativeSketch] = {}
+            feeder = _VerifyFeeder(self, sk_by_idx.__getitem__)
+            scr.on_pairs = feeder.feed
 
-        def screen_feed(names, sketches, dev):
-            idxs: List[int] = []
-            src_rows: List[int] = []
-            sizes: List[float] = []
-            for r, (nm, sk) in enumerate(zip(names, sketches)):
-                for i in idxs_by_key.get(nm, ()):
-                    idxs.append(i)
-                    src_rows.append(r)
-                    sizes.append(float(sk.n_prefilter))
-                    sk_by_idx[i] = sk
-            if idxs:
-                scr.add_device_rows(idxs, dev["pref_words"], src_rows, sizes)
+            def screen_feed(names, sketches, dev):
+                idxs: List[int] = []
+                src_rows: List[int] = []
+                sizes: List[float] = []
+                for r, (nm, sk) in enumerate(zip(names, sketches)):
+                    for i in idxs_by_key.get(nm, ()):
+                        idxs.append(i)
+                        src_rows.append(r)
+                        sizes.append(float(sk.n_prefilter))
+                        sk_by_idx[i] = sk
+                if idxs:
+                    scr.add_device_rows(idxs, dev["pref_words"], src_rows,
+                                        sizes)
 
-        t0 = time.perf_counter()
-        sketches = sketch_call(screen_feed)
-        t_sketched = time.perf_counter()
-        for i in range(n):
-            if i not in sk_by_idx:
-                sk_by_idx[i] = sketches[i]
-        late = scr.missing_rows()
-        if late:
-            scr.add_host_rows(
-                late,
-                [pack_indicator(sk_by_idx[i].prefilter_buckets, bits)
-                 for i in late],
-                [float(sk_by_idx[i].n_prefilter) for i in late],
-            )
-        res = scr.finish()
-        tail = time.perf_counter() - t_sketched
-        m = metrics.current()
-        m.phases["screen"] = m.phases.get("screen", 0.0) + tail
-        m.counters["phases_overlapped"] = 1.0
-        m.rate("screen_pairs_per_s", n * (n - 1) // 2,
-               time.perf_counter() - t0)
-        m.count("screen_rows_device_born", n - len(late))
-        m.count("screen_rows_host_uploaded", len(late))
-        m.count("screen_rows_at_first_dispatch", scr.rows_at_first_dispatch)
-        logger.info(
-            "Pipelined screen: first tile issued after %d/%d rows; %d rows "
-            "added after sketching; screen tail %.2fs; %d candidate pairs",
-            scr.rows_at_first_dispatch, n, len(late), tail, len(res.pairs))
-        cache = feeder.finish()
-        self._report_indel_load(cache, sk_by_idx.__getitem__)
-        return cache
+            t0 = time.perf_counter()
+            sketches = sketch_call(screen_feed)
+            t_sketched = time.perf_counter()
+            for i in range(n):
+                if i not in sk_by_idx:
+                    sk_by_idx[i] = sketches[i]
+            late = scr.missing_rows()
+            if late:
+                scr.add_host_rows(
+                    late,
+                    [pack_indicator(sk_by_idx[i].prefilter_buckets, bits)
+                     for i in late],
+                    [float(sk_by_idx[i].n_prefilter) for i in late],
+                )
+            res = scr.finish()
+            tail = time.perf_counter() - t_sketched
+            m = metrics.current()
+            m.phases["screen"] = m.phases.get("screen", 0.0) + tail
+            m.counters["phases_overlapped"] = 1.0
+            m.rate("screen_pairs_per_s", n * (n - 1) // 2,
+                   time.perf_counter() - t0)
+            m.count("screen_rows_device_born", n - len(late))
+            m.count("screen_rows_host_uploaded", len(late))
+            # None when every tile was replayed from the sweep checkpoint.
+            if scr.rows_at_first_dispatch is not None:
+                m.count("screen_rows_at_first_dispatch",
+                        scr.rows_at_first_dispatch)
+            logger.info(
+                "Pipelined screen: first tile issued after %s/%d rows; %d "
+                "rows added after sketching; screen tail %.2fs; %d "
+                "candidate pairs",
+                scr.rows_at_first_dispatch, n, len(late), tail, len(res.pairs))
+            cache = feeder.finish()
+            self._report_indel_load(cache, sk_by_idx.__getitem__)
+            return cache
+        finally:
+            scr.close()
 
     def distances_with_references(
         self, genome_fasta_paths: Sequence[str], reference_genomes: Sequence[str]
@@ -779,6 +873,7 @@ class NativePreclusterer(PreclusterDistanceFinder):
         if not ref_idx or not query_idx:
             return SortedPairDistanceCache()
         _screen_backend()  # raises for the unported indicator screen
+        self._warn_checkpoint_unsupported("reference-genome rectangle")
         k = ctx.params.k
         bits = ctx.params.prefilter_bits
         min_cont = _screen_min_containment(
@@ -809,6 +904,18 @@ class NativePreclusterer(PreclusterDistanceFinder):
     def method_name(self) -> str:
         return "native"
 
+    def _warn_checkpoint_unsupported(self, path_name: str) -> None:
+        """The JAX package's warning for a screen that does not log to
+        the sweep checkpoint."""
+        if self.sweep_checkpoint:
+            logger.warning(
+                "--sweep-checkpoint only applies to the single-device "
+                "resident packed screen; the %s path will NOT "
+                "checkpoint mid-sweep (the between-phase caches, "
+                "--output-distance-cache and the sketch store, still "
+                "apply)", path_name,
+            )
+
     def _timed_screen(
         self, n_pairs: int, screen: Callable[..., ScreenResult], *args,
         **kwargs,
@@ -836,13 +943,20 @@ class NativePreclusterer(PreclusterDistanceFinder):
             self.threshold, self.min_aligned_threshold, k
         )
         if _screen_backend() == "popcount":
+            self._warn_checkpoint_unsupported("popcount")
             screen, opts = screen_triangle_popcount, {}
         else:
+            # The streaming (low-memory) sweep warns that it does not
+            # checkpoint.
             screen = screen_triangle_packed
             opts = {
                 "cache_blocks": not ctx.low_memory,
                 "matrix_builder": (None if ctx.low_memory
                                    else ctx.pref_matrix_builder(sketches)),
+                "checkpoint_path": self.sweep_checkpoint,
+                "unit_names": ([s.name for s in sketches]
+                               if self.sweep_checkpoint and not ctx.low_memory
+                               else None),
             }
         res = self._timed_screen(
             n * (n - 1) // 2, screen,

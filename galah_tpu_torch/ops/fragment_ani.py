@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from collections import OrderedDict, defaultdict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -415,8 +416,12 @@ class StreamArena:
     def _fill_host(self, keys: Sequence, sketches: Sequence,
                    todo: Sequence[int]) -> None:
         """Upload the todo keys' streams from their host sketches, in
-        runs of consecutive slots: the arena's only stream upload."""
-        metrics.current().count("verify_streams_uploaded", len(todo))
+        runs of consecutive slots: the arena's only stream upload
+        (verify_stream_upload_bytes and _s count its stream bytes and
+        host time)."""
+        m = metrics.current()
+        m.count("verify_streams_uploaded", len(todo))
+        t0 = time.perf_counter()
         runs: List[List] = []
         for p in todo:
             h, _ = self._map[keys[p]]
@@ -429,7 +434,9 @@ class StreamArena:
         for h, n, parts in runs:
             self.hashes[h:h + n] = to_device(np.concatenate(parts),
                                              self.device)
+            m.count("verify_stream_upload_bytes", 4 * n)
         self._fill_offsets(keys, sketches, todo)
+        m.count("verify_stream_upload_s", time.perf_counter() - t0)
 
     def ensure(self, keys, sketches_by_key) -> Dict[object, Tuple[int, int]]:
         """Make every key's stream resident, uploading those that are

@@ -32,11 +32,20 @@ re-extract such a tile from.
 Pairs come out tile by tile in the order tiles were issued, row-major
 within a tile: the reference's sweep order for a sweep, the order in
 which tiles became ready for a screen fed row by row.
+
+The resident triangle sweep can log every drained tile to a mid-sweep
+checkpoint (ops/sweep_checkpoint.py, --sweep-checkpoint) and replay the
+logged tiles of a killed run instead of issuing them: a replayed tile's
+pairs are emitted when it would have been issued, ahead of tiles still
+in flight, so the pair order differs from a fresh run's but the pair
+set does not. The streaming sweeps do not checkpoint.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -48,7 +57,14 @@ from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
 from galah_tpu_torch.utils import metrics
 from galah_tpu_torch.utils.convert import to_device, words_to_torch
 
+logger = logging.getLogger(__name__)
+
 DEFAULT_BLOCK = 1024
+
+# The route recorded as `dtname` in a sweep checkpoint's fingerprint:
+# the intersection counts are K1's, exact int32 (the JAX package records
+# its matmul input dtype there).
+SCREEN_ROUTE = "torch-k1-int32"
 
 # Hit-row capacity of the reference's two-level sparse extraction
 # (galah_tpu/ops/prefilter.py ROW_SEL): a streaming tile whose hits span
@@ -204,6 +220,7 @@ class _TileQueue:
 
     def __init__(self, bits: int, min_containment: float, block: int,
                  k: int, *, streaming: bool) -> None:
+        self.block = block
         self.bits_f = float(bits)
         self.min_cont_f = float(np.float32(min_containment))
         self.cap = _screen_cap_for(block)
@@ -215,6 +232,9 @@ class _TileQueue:
         # Called with each drained tile's (pairs, ani_est) when it has
         # a hit: the engine's verify feeder.
         self.on_pairs: Optional[Callable[[np.ndarray, np.ndarray], None]] = None
+        # The sweep checkpoint every drained tile is logged to, keyed by
+        # (row0 // block, col0 // block), hit or not (triangle sweeps).
+        self.checkpoint = None
         self._pending: "deque[_Tile]" = deque()
         self._free: List[torch.Tensor] = []  # pinned hit buffers to reuse
         self._upper: Dict[Tuple, torch.Tensor] = {}
@@ -286,6 +306,28 @@ class _TileQueue:
             self._free.append(t.host)
         if got and self.on_pairs is not None:
             self.on_pairs(self.pairs[-1], self.anis[-1])
+        if self.checkpoint is not None:
+            self.checkpoint.put(
+                t.row0 // self.block, t.col0 // self.block,
+                self.pairs[-1] if got else np.empty((0, 2), np.int64),
+                self.anis[-1] if got else np.empty(0, np.float32))
+
+    def replay(self, pairs: np.ndarray, anis: np.ndarray) -> None:
+        """Emit a logged tile's pairs, as its drain would have."""
+        if len(pairs):
+            self.pairs.append(pairs)
+            self.anis.append(anis)
+            if self.on_pairs is not None:
+                self.on_pairs(pairs, anis)
+
+    def abandon(self) -> None:
+        """Drop every tile in flight after a failure, once its copy home
+        has landed, so that no pinned buffer is still being written."""
+        for t in self._pending:
+            if t.done is not None:
+                t.done.synchronize()
+        self._pending.clear()
+        self._free.clear()
 
     def result(self) -> ScreenResult:
         """Drain every tile still in flight; every pair in issue order."""
@@ -308,11 +350,19 @@ class IncrementalPackedScreen:
     order. A tile's row blocks are complete, and never written again,
     before it is issued, and its drain reads only what its issue
     computed. Calls come from one thread; finish() comes after the last
-    row."""
+    row, close() after a failure.
+
+    checkpoint_path and unit_names (one name per row) turn on the
+    mid-sweep checkpoint: every drained tile is logged, and a tile found
+    in the log is replayed instead of issued (tiles_restored counts
+    them; they count neither as screen_tiles nor in
+    screen_pairs_computed, as in the JAX package)."""
 
     def __init__(self, n: int, k: int, min_containment: float, bits: int,
                  device: torch.device, block: int = 0,
-                 row_width: int = 0) -> None:
+                 row_width: int = 0,
+                 checkpoint_path: Optional[str] = None,
+                 unit_names: Optional[Sequence[str]] = None) -> None:
         if n <= 0:
             raise ValueError("IncrementalPackedScreen needs n >= 1")
         self.n = n
@@ -334,6 +384,21 @@ class IncrementalPackedScreen:
         # sketched).
         self.rows_at_first_dispatch: Optional[int] = None
         self.rows_added = 0
+        self.tiles_restored = 0
+        self._ckpt = None
+        if checkpoint_path:
+            from galah_tpu_torch.ops.sweep_checkpoint import (
+                SweepCheckpoint,
+                sweep_fingerprint,
+            )
+
+            if unit_names is None or len(unit_names) != n:
+                raise ValueError(
+                    "checkpoint_path requires unit_names (one per row)")
+            self._ckpt = SweepCheckpoint(checkpoint_path, sweep_fingerprint(
+                unit_names, bits, self.block, k, self._queue.min_cont_f,
+                SCREEN_ROUTE))
+            self._queue.checkpoint = self._ckpt
 
     @property
     def on_pairs(self):
@@ -413,13 +478,17 @@ class IncrementalPackedScreen:
     def add_host_rows(self, idxs: Sequence[int], rows: Sequence[np.ndarray],
                       sizes: Sequence[float]) -> None:
         """Upload host-packed uint32 rows (pack_indicator output), in
-        chunks of about 64 MiB."""
+        chunks of about 64 MiB. screen_host_row_bytes and
+        screen_host_row_upload_s count the rows' bytes and the host time
+        of their upload, not that of the tiles they complete."""
         self._check_open()
         self._queue.window = _pipeline_window()
         keep = self._fresh(idxs)
         step = max(1, (64 << 20) // (self.w * 4))
+        m = metrics.current()
         for lo in range(0, len(keep), step):
             chunk = keep[lo:lo + step]
+            t0 = time.perf_counter()
             dst = [int(idxs[p]) for p in chunk]
             dst_t = to_device(np.asarray(dst, np.int64), self.device)
             mat = words_to_torch(np.stack([rows[p] for p in chunk])).numpy()
@@ -427,6 +496,8 @@ class IncrementalPackedScreen:
             self._s.index_copy_(0, dst_t, to_device(
                 np.asarray([sizes[p] for p in chunk], np.float32),
                 self.device))
+            m.count("screen_host_row_bytes", mat.nbytes)
+            m.count("screen_host_row_upload_s", time.perf_counter() - t0)
             self._schedule(self._note_added(dst))
 
     def set_prebuilt(self, x: torch.Tensor, s: torch.Tensor) -> None:
@@ -453,6 +524,12 @@ class IncrementalPackedScreen:
     # ---- issue / finish ----------------------------------------------
 
     def _issue(self, bi: int, bj: int) -> None:
+        if self._ckpt is not None:
+            got = self._ckpt.has(bi, bj)
+            if got is not None:
+                self.tiles_restored += 1
+                self._queue.replay(*got)
+                return
         if self.rows_at_first_dispatch is None:
             self.rows_at_first_dispatch = self.rows_added
         m = metrics.current()
@@ -468,12 +545,29 @@ class IncrementalPackedScreen:
         """Drain every tile; the screen's pairs. Raises if a row was
         never fed."""
         self._check_open()
+        try:
+            if self.rows_added != self.n:
+                raise RuntimeError(
+                    f"screen finish() with {self.n - self.rows_added} rows "
+                    "never fed")
+            return self._queue.result()
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Release what the sweep holds: the tiles still in flight (after
+        a failure) and the checkpoint's file. Idempotent."""
         self._finished = True
-        if self.rows_added != self.n:
-            raise RuntimeError(
-                f"screen finish() with {self.n - self.rows_added} rows "
-                "never fed")
-        return self._queue.result()
+        self._queue.abandon()
+        if self._ckpt is not None:
+            self._ckpt.close()
+            if self.tiles_restored:
+                metrics.current().count("screen_tiles_restored",
+                                        self.tiles_restored)
+                logger.info("Sweep checkpoint: %d tiles replayed, %d "
+                            "logged in all", self.tiles_restored,
+                            len(self._ckpt))
+            self._ckpt = None
 
 
 def _sweep(
@@ -539,9 +633,11 @@ def screen_triangle_packed(
     min_containment: float,
     bits: int,
     device: torch.device,
-    block: int = DEFAULT_BLOCK,
+    block: int = 0,
     cache_blocks: bool = True,
     matrix_builder: Optional[Callable[[int], torch.Tensor]] = None,
+    checkpoint_path: Optional[str] = None,
+    unit_names: Optional[Sequence[str]] = None,
 ) -> ScreenResult:
     """Upper-triangle screen over packed uint32 bitmap rows.
 
@@ -553,20 +649,33 @@ def screen_triangle_packed(
     host (the reference's streaming branch, with its overflow rule).
     matrix_builder(n), when given, supplies the resident (n, W) int32
     matrix on `device` instead of the upload (the engine builds it from
-    device-born sketch rows)."""
+    device-born sketch rows). checkpoint_path and unit_names turn on the
+    resident sweep's mid-sweep checkpoint (IncrementalPackedScreen); the
+    streaming sweep warns that it does not checkpoint, as the JAX
+    package's does."""
     n = len(packed)
     if n == 0:
         return _empty_result()
+    block = block or DEFAULT_BLOCK
     sizes_f = np.asarray(sizes).astype(np.float32)
     w = _row_width(packed)
     if cache_blocks and n * w * 4 <= _device_resident_budget(device):
         scr = IncrementalPackedScreen(n, k, min_containment, bits, device,
-                                      block=block, row_width=w)
-        if matrix_builder is not None:
-            scr.set_prebuilt(matrix_builder(n), to_device(sizes_f, device))
-        else:
-            scr.set_prebuilt(*_host_block(packed, sizes_f, 0, n, device))
-        return scr.finish()
+                                      block=block, row_width=w,
+                                      checkpoint_path=checkpoint_path,
+                                      unit_names=unit_names)
+        try:
+            if matrix_builder is not None:
+                scr.set_prebuilt(matrix_builder(n), to_device(sizes_f, device))
+            else:
+                scr.set_prebuilt(*_host_block(packed, sizes_f, 0, n, device))
+            return scr.finish()
+        finally:
+            scr.close()
+    if checkpoint_path:
+        logger.warning(
+            "--sweep-checkpoint only applies to the resident sweep; "
+            "this streaming sweep will NOT checkpoint mid-sweep")
     stream = _streamer(packed, sizes_f, block, device)
     queue = _TileQueue(bits, min_containment, block, k, streaming=True)
     return _sweep(stream, stream, n, n, triangle=True, queue=queue,
@@ -582,7 +691,7 @@ def screen_rectangle_packed(
     min_containment: float,
     bits: int,
     device: torch.device,
-    block: int = DEFAULT_BLOCK,
+    block: int = 0,
     cache_blocks: bool = True,
 ) -> ScreenResult:
     """Cross-group screen (reference-genome mode): every (query block,
@@ -596,6 +705,7 @@ def screen_rectangle_packed(
     nq, nr = len(query_packed), len(ref_packed)
     if nq == 0 or nr == 0:
         return _empty_result()
+    block = block or DEFAULT_BLOCK
     qs = np.asarray(query_sizes).astype(np.float32)
     rs = np.asarray(ref_sizes).astype(np.float32)
     w = _row_width(query_packed)

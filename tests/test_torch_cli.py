@@ -334,8 +334,41 @@ def test_resolve_device(monkeypatch):
     ["--sweep-checkpoint", "ckpt"],
     ["--input-distance-cache", "d.npz"],
 ])
-def test_unported_modes_are_refused(corpus, tmp_path, monkeypatch, capsys, flags):
+def test_unported_modes_are_refused(corpus, tmp_path, monkeypatch, flags):
+    """The modes that earlier slices of the port refused now run, and
+    give the JAX CLI's clusters.tsv. Each package runs in a directory of
+    its own (the flags' paths are relative), with the fastANI shim of
+    tests/test_subprocess_backends.py on PATH; the input distance cache
+    is written by a JAX run, and an output cache reads back equal."""
+    from test_subprocess_backends import FASTANI_SHIM
+
+    from galah_tpu_torch.sketch.store import load_distance_cache
+
     d, _, _ = corpus
-    monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
-    assert torch_main(_cluster_argv(d, tmp_path / "x.tsv") + flags) == 1
-    assert "not yet supported by galah_tpu_torch" in capsys.readouterr().err
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    (bindir / "fastANI").write_text(FASTANI_SHIM)
+    (bindir / "fastANI").chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setenv("GALAH_TPU_SCREEN", "packed")
+    monkeypatch.setenv("GALAH_TPU_VERIFY_DEVICES", "1")
+    out = {}
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        wd = tmp_path / name
+        wd.mkdir()
+        monkeypatch.chdir(wd)
+        monkeypatch.delenv("GALAH_TPU_PLATFORM", raising=False)
+        if flags[0] == "--input-distance-cache":
+            assert jax_main(_cluster_argv(d, wd / "pre.tsv")
+                            + ["--output-distance-cache", "d.npz"]) == 0
+        if name == "torch":
+            monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
+        assert main(_cluster_argv(d, wd / "x.tsv") + flags) == 0
+        out[name] = (wd / "x.tsv").read_bytes()
+    assert out["torch"] == out["jax"]
+    assert len(out["torch"].splitlines()) == 16
+    if flags[0] == "--output-distance-cache":
+        got = [load_distance_cache(str(tmp_path / n / "d.npz"))
+               for n in ("jax", "torch")]
+        assert dict(got[0][0].items()) == dict(got[1][0].items())
+        assert got[0][1:] == got[1][1:]

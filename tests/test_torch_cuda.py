@@ -679,3 +679,108 @@ def test_k5_raises_on_a_refused_launch(cuda_device, monkeypatch, refused):
     with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
         ds.sketch_batch(batch)
     assert ds.sketch_batch.launches == before
+
+
+# ------------------------------------------------------- resume artifacts
+
+
+def _cli_on_card(tmp_path, tag, inputs, *flags):
+    """(exit code, clusters.tsv bytes, metrics counters) of one `cluster`
+    run of the port's CLI on the card."""
+    import json
+
+    from galah_tpu_torch.cli.main import main
+
+    tsv, mjson = tmp_path / f"{tag}.tsv", tmp_path / f"{tag}.json"
+    rc = main(["cluster", *inputs, "--ani", "95", "-q",
+               "--output-cluster-definition", str(tsv),
+               "--metrics-json", str(mjson), *flags])
+    if rc:
+        return rc, None, {}
+    return rc, tsv.read_bytes(), json.loads(mjson.read_text())["counters"]
+
+
+def _card_corpus(tmp_path, monkeypatch):
+    from galah_tpu_torch.ops import prefilter as pf
+    from galah_tpu_torch.utils.synth import make_families
+
+    paths, _ = make_families(str(tmp_path / "c"), 4, 4, genome_length=60_000,
+                             within_ani=0.98, seed=5)
+    monkeypatch.setattr(pf, "DEFAULT_BLOCK", 4)  # 4 row blocks, 10 tiles
+    for var in ("GALAH_TPU_PLATFORM", "GALAH_TPU_PIPELINE", "GALAH_TPU_SCREEN",
+                "GALAH_TPU_DEVICE_SKETCH", "GALAH_TPU_ARENA"):
+        monkeypatch.delenv(var, raising=False)
+    return ["-f", *paths]
+
+
+def test_kill_and_resume_on_card(cuda_device, tmp_path, monkeypatch):
+    """The overlapped phases on the card with --sweep-checkpoint: a crash
+    after 5 of 10 K1 launches exits 1 with the drained tiles logged; the
+    resume launches K1 for the other tiles only and gives the clusters of
+    a run without a checkpoint; a complete log launches K1 no more."""
+    import json
+
+    from galah_tpu_torch.ops import prefilter as pf
+    from galah_tpu_torch.ops.sweep_checkpoint import SweepCheckpoint
+
+    inputs = _card_corpus(tmp_path, monkeypatch)
+    rc, want, counters = _cli_on_card(tmp_path, "ref", inputs)
+    assert rc == 0 and counters["phases_overlapped"] == 1
+    assert counters["screen_tiles"] == 10
+    log = tmp_path / "sweep.ckpt"
+    real = pf.packed_intersect_counts
+    calls = {"n": 0}
+
+    def crashing(a, b):
+        calls["n"] += 1
+        if calls["n"] > 5:
+            raise RuntimeError("injected crash mid-sweep")
+        return real(a, b)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(pf, "packed_intersect_counts", crashing)
+        rc, _, _ = _cli_on_card(tmp_path, "killed", inputs,
+                                "--sweep-checkpoint", str(log))
+    assert rc == 1
+    with open(log, "rb") as f:
+        f.read(len(b"GTSWEEP1\n"))
+        (n,) = np.frombuffer(f.read(4), np.int32)
+        fp = json.loads(f.read(int(n)))
+    logged = len(SweepCheckpoint(str(log), fp))
+    assert 0 < logged <= 5
+    for tag, launches in (("resumed", 10 - logged), ("replayed", 0)):
+        before = real.launches
+        rc, got, counters = _cli_on_card(tmp_path, tag, inputs,
+                                         "--sweep-checkpoint", str(log))
+        assert rc == 0 and got == want
+        assert real.launches - before == launches
+        assert counters.get("screen_tiles", 0) == launches
+
+
+@pytest.mark.parametrize("mode", ["genomes", "contigs"])
+def test_warm_sketch_directory_on_card(cuda_device, tmp_path, monkeypatch,
+                                       mode):
+    """A second run over a warm --sketch-directory launches K5 no more;
+    its screen rows and verify streams are uploaded from the host, and
+    its clusters are the first run's."""
+    from galah_tpu_torch.ops.device_sketch import sketch_batch
+    from galah_tpu_torch.utils.synth import make_contig_corpus
+
+    inputs = _card_corpus(tmp_path, monkeypatch)
+    n = 16
+    if mode == "contigs":
+        path = str(tmp_path / "contigs.fna")
+        make_contig_corpus(path, 30, 5, contig_length=5_000, seed=21)
+        inputs, n = ["-f", path, "--cluster-contigs", "--small-contigs"], 150
+    flags = ("--sketch-directory", str(tmp_path / "sketches"))
+    before = sketch_batch.launches
+    rc, first, c1 = _cli_on_card(tmp_path, "first", inputs, *flags)
+    assert rc == 0 and sketch_batch.launches > before
+    assert c1["screen_rows_device_born"] == n
+    before = sketch_batch.launches
+    rc, second, c2 = _cli_on_card(tmp_path, "second", inputs, *flags)
+    assert rc == 0 and second == first
+    assert sketch_batch.launches == before
+    assert c2["screen_rows_host_uploaded"] == n
+    assert c2["screen_host_row_bytes"] > 0
+    assert c2["verify_streams_uploaded"] > 0

@@ -296,3 +296,37 @@ def test_cluster_flags_parse_as_in_jax_package(argv):
         add(parser)
         parsed.append(vars(parser.parse_args(argv)))
     assert parsed[0] == parsed[1]
+
+
+# ------------------------------------------------------------ copies
+
+
+# Modules the port holds as copies of the JAX package's, unchanged but
+# for the package name in their imports and a note in their docstring.
+VERBATIM_COPIES = [
+    "annotate/analyse.py", "annotate/barrnap.py", "annotate/trnascan.py",
+    "cli/analyse_cmd.py", "engines/finch_like.py",
+    "engines/subprocess_backends.py", "ops/sweep_checkpoint.py",
+    "sketch/minhash.py", "sketch/murmur3.py",
+]
+
+
+def _code_without_docstring(source: str) -> str:
+    tree = ast.parse(source)
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) and isinstance(
+            getattr(body[0], "value", None), ast.Constant):
+        tree.body = body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", VERBATIM_COPIES)
+def test_copied_module_is_the_jax_packages(rel):
+    import re
+
+    jax_src = (REPO / "galah_tpu" / rel).read_text()
+    port_src = (REPO / "galah_tpu_torch" / rel).read_text()
+    renamed = re.sub(r"\bgalah_tpu\b", "galah_tpu_torch", jax_src)
+    assert _code_without_docstring(port_src) == _code_without_docstring(
+        renamed)
+    assert f"galah_tpu/{rel}" in ast.get_docstring(ast.parse(port_src))
