@@ -61,10 +61,12 @@ exits non-zero):
    stream arena with no reset; then once more with GALAH_TPU_PIPELINE=0,
    which must give the same candidate pairs and a byte-identical
    clusters.tsv;
-10. resume: the resume artifacts on the contig corpus at full size, each
-   run's clusters.tsv byte-identical to phase 9's: (a) --sweep-checkpoint
-   C --sketch-directory D --output-distance-cache X, killed in-process at
-   screen tile 2,401 (exit 1; C must hold the drained tiles); (b) the
+10. resume: the resume artifacts on a contig corpus of the contig
+   path's shape cut to 20,000 contigs (4,000 families of 5; 210 tiles),
+   each run's clusters.tsv byte-identical to a default run's over it:
+   (a) --sweep-checkpoint C --sketch-directory D --output-distance-cache
+   X, killed in-process at screen tile 101 (exit 1; C must hold the
+   drained tiles); (b) the
    same flags without the crash: K1 launched once for each tile not in
    C, the contig bundle written (its write time printed); (c) D alone:
    K5 never launched, K1 once a tile, rows and verify streams uploaded
@@ -86,10 +88,27 @@ exits non-zero):
    sketching) and on the card (device sketching), for the packed,
    popcount, reference and low-memory paths, and a 2,000-contig corpus
    in contig mode, must give the same candidate pairs, ANI within 1e-3
-   percentage points, equal AF and the same clusters.tsv.
+   percentage points, equal AF and the same clusters.tsv;
+14. shards: the contig path over every visible card as a shard, or two
+   shards on cuda:0 with one card (the cluster subcommand called with
+   them): the sharded triangle, and under GALAH_TPU_ROWSHARD=1 the
+   row-sharded one, must give phase 9's candidate pairs and ANI bit for
+   bit and its clusters.tsv, with K1 launched by each shard and 4,851
+   times in all (it prints the tiles the row-sharded stream rule
+   decided densely); reference mode over the shards must give phase 7's
+   pairs;
+15. processes: this script again as 2 ranks joined by gloo on a free
+   localhost port (one card a rank, or both on cuda:0), each running the
+   API's cluster_genomes on the main corpus (its share of the genomes
+   sketched through K5, the rest exchanged; one K1 launch in all) and
+   cluster_contigs on the contig corpus (every contig sketched on each
+   rank; K1 launches summing to 4,851): every rank's clusters.tsv must
+   be phase 5's and phase 9's. It prints each rank's launches, the
+   exchange's bytes and seconds and the verify partition's pairs. A rank
+   that fails or outlasts RANK_TIMEOUT_S fails the phase.
 
 Each path's kernel launch counts are set to 0 just before its run and
-read just after. The C++ sketcher must load: the numpy fallback would
+read just after (by shard and by rank in phases 14 and 15). The C++ sketcher must load: the numpy fallback would
 change the sketch times many times over. The last lines are the kernels' JSON summary, the
 nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device
 the script exits 1 and prints no result. The synthetic corpora are
@@ -122,12 +141,17 @@ CONTIG_LENGTH = 5_000
 CONTIG_SEED = 13
 PARITY_CONTIGS = (400, 5)
 LOW_MEMORY_FAMILIES = 32       # --low-memory runs over these families only
-RESUME_CRASH_TILES = 2_400     # the resume phase's crash, about half the sweep
+# The resume phase's corpus: the contig corpus's shape at a fifth of its
+# depth (20,000 contigs, 210 tiles), and its crash, about half the sweep.
+RESUME_CORPUS = (4_000, 5)
+RESUME_CRASH_TILES = 100
 K5_GENOMES = 8                 # main-corpus genomes of K5's check
 K5_MAIN_GENOMES = 64           # the main path's batch (64 MiB / 2^20)
 K5_CONTIGS = 2_000             # contig-corpus contigs of K5's check
 ANI_TOL = 1e-3                 # percentage points, GPU vs CPU verify ANI
 SCALE_ROWS = 10_240
+RANKS = 2                      # phase 15's processes
+RANK_TIMEOUT_S = 600           # phase 15's time limit and collective timeout
 SCALE_BITS = 1 << 17
 SCALE_SET_BITS = 5_000         # expected set bits per row
 SCALE_PLANTED = 200
@@ -634,12 +658,17 @@ def _recording():
     import galah_tpu_torch.ops.pair_table as pt
     import galah_tpu_torch.ops.popcount_screen as pc
     import galah_tpu_torch.ops.prefilter as pf
+    import galah_tpu_torch.parallel.distance as dist
 
     rec = {"screen_dev": set(), "verify_dev": set(), "tile_shapes": set(),
            "pairs": None, "verified": {}, "device_sketches": []}
     finish = pf.IncrementalPackedScreen.finish
     screens = ("screen_triangle_packed", "screen_triangle_popcount",
                "screen_rectangle_packed")
+    sharded = ("sharded_screen_triangle_packed",
+               "sharded_screen_rectangle_packed",
+               "sharded_screen_triangle_rowsharded",
+               "sharded_screen_rectangle_rowsharded")
     orig = {
         (pf, "_containment"): pf._containment,
         (pc, "_containment"): pc._containment,
@@ -650,6 +679,7 @@ def _recording():
         (ds, "sketch_host_batch"): ds.sketch_host_batch,
         (pf.IncrementalPackedScreen, "finish"): finish,
         **{(native, s): getattr(native, s) for s in screens},
+        **{(dist, s): getattr(dist, s) for s in sharded},
     }
 
     def containment(fn):
@@ -695,6 +725,8 @@ def _recording():
     pf.IncrementalPackedScreen.finish = screen(finish)
     for s in screens:
         setattr(native, s, screen(orig[(native, s)]))
+    for s in sharded:
+        setattr(dist, s, screen(orig[(dist, s)]))
     try:
         yield rec
     finally:
@@ -712,12 +744,17 @@ def _launch_counters():
 
 
 def _run_cli(inputs, out_dir: str, tag: str, platform: str,
-             screen: str | None = None, flags=(), env=None, expect_rc=0):
+             screen: str | None = None, flags=(), env=None, expect_rc=0,
+             devices=None):
     """One `cluster` run, with the environment variables `env` set for
     it; returns (wall, metrics, clusters.tsv bytes, recording, {kernel:
     launches in this run}). A run expected to fail (expect_rc != 0)
-    returns None for the metrics and the clusters."""
-    from galah_tpu_torch.cli.main import main
+    returns None for the metrics and the clusters. `devices`, when
+    given, are the run's shards (the subcommand called with them, as
+    the CLI calls it with every local card); K1's launches by shard are
+    then under "K1 by shard"."""
+    from galah_tpu_torch.cli.main import build_parser, main
+    from galah_tpu_torch.cli.cluster_cmd import run_cluster
 
     tsv = os.path.join(out_dir, f"{tag}.tsv")
     mjson = os.path.join(out_dir, f"{tag}.json")
@@ -734,11 +771,19 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
     try:
         for fn in counters.values():
             fn.launches = 0
+        counters["K1"].per_shard.clear()
         with _recording() as rec:
             t0 = time.perf_counter()
-            rc = main(argv)
+            if devices is None:
+                rc = main(argv)
+            else:
+                rc = run_cluster(build_parser().parse_args(argv),
+                                 devices) or 0
             wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        if devices is not None:
+            launches["K1 by shard"] = dict(sorted(
+                counters["K1"].per_shard.items()))
     finally:
         for var in env:
             os.environ.pop(var, None)
@@ -938,7 +983,7 @@ def phase_popcount_path(work: str, corpus: str, main_tsv: bytes) -> int:
     return launches["K2"]
 
 
-def phase_reference(work: str, paths, fam_ids) -> None:
+def phase_reference(work: str, paths, fam_ids):
     refs, inputs = _reference_inputs(work, "reference", paths, fam_ids)
     wall, m, clusters, rec, launches = _run_cli(
         inputs, work, "reference", "gpu")
@@ -955,6 +1000,7 @@ def phase_reference(work: str, paths, fam_ids) -> None:
               f"cluster of {rep} does not hold exactly one reference")
     log("reference", f"OK: {n_clusters} clusters, one per family, each "
                      f"holding its reference ({len(refs)} references)")
+    return rec["pairs"]
 
 
 def phase_low_memory(work: str, paths, fam_ids) -> None:
@@ -1008,7 +1054,8 @@ def _sorted_pairs(res):
 def phase_contig_path(work: str, path: str, names, fams):
     """--cluster-contigs --small-contigs over the contig corpus, with the
     phases overlapped, then with GALAH_TPU_PIPELINE=0; returns the
-    overlapped run's launches and clusters.tsv bytes."""
+    overlapped run's launches, clusters.tsv bytes, tiles and candidate
+    pairs with their ANI (sorted by pair)."""
     import numpy as np
     import torch
 
@@ -1057,7 +1104,7 @@ def phase_contig_path(work: str, path: str, names, fams):
     log("contigs", f"OK: GALAH_TPU_PIPELINE=0 gives the same {len(pp)} "
                    f"candidate pairs and clusters.tsv; wall {wall:.2f} s "
                    f"overlapped, {seq_wall:.2f} s sequential")
-    return launches, clusters, int(tiles)
+    return launches, clusters, int(tiles), (pp, pa)
 
 
 def _logged_tiles(path: str) -> int:
@@ -1088,11 +1135,11 @@ def _crash_after(tiles: int):
     real = pf.packed_intersect_counts
     issued = {"n": 0}
 
-    def crashing(a, b):
+    def crashing(a, b, **kw):
         issued["n"] += 1
         if issued["n"] > tiles:
             raise RuntimeError(f"injected crash at screen tile {tiles + 1}")
-        return real(a, b)
+        return real(a, b, **kw)
 
     pf.packed_intersect_counts = crashing
     try:
@@ -1101,22 +1148,34 @@ def _crash_after(tiles: int):
         pf.packed_intersect_counts = real
 
 
-def phase_resume(work: str, path: str, names, fams, contig_tsv: bytes,
-                 contig_tiles: int) -> dict:
-    """The resume artifacts on the contig corpus at full size: (a) a run
-    with --sweep-checkpoint C --sketch-directory D --output-distance-cache
-    X killed in-process after RESUME_CRASH_TILES screen tiles; (b) the
-    same flags without the crash; (c) D alone; (d) D and the complete C;
-    (e) X. Each run's clusters.tsv must be phase 9's, with the launches
-    each must make. Returns {run: launches}."""
+def phase_resume(work: str) -> dict:
+    """The resume artifacts on the contig corpus's shape cut to
+    RESUME_CORPUS (the full corpus's bundle write alone took ~3 min):
+    a default run first, then (a) a run with --sweep-checkpoint C
+    --sketch-directory D --output-distance-cache X killed in-process
+    after RESUME_CRASH_TILES screen tiles; (b) the same flags without
+    the crash; (c) D alone; (d) D and the complete C; (e) X. Each run's
+    clusters.tsv must be the default run's, with the launches each must
+    make. Returns {run: launches}."""
     from galah_tpu_torch.ops.prefilter import _pipeline_window
 
+    path, names, fams = make_contig_corpus(work, RESUME_CORPUS,
+                                           "resume_contigs")
+    wall, m, contig_tsv, _, launches = _run_cli(
+        _contig_inputs(path), work, "resume_default", "gpu")
+    contig_tiles = int(m["counters"]["screen_tiles"])
+    n = _families_exact(contig_tsv, names, fams)
+    check(n == RESUME_CORPUS[0] and launches["K1"] == contig_tiles,
+          f"resume corpus: {n} clusters, K1 {launches['K1']} for "
+          f"{contig_tiles} tiles")
+    log("resume", f"default run: {len(names)} contigs, {n} clusters, "
+                  f"{contig_tiles} tiles; wall {wall:.2f} s")
+    out = {"default": launches}
     ckpt, sk_dir = os.path.join(work, "resume.ckpt"), os.path.join(
         work, "resume_sketches")
     cache = os.path.join(work, "resume_distances.npz")
     full = ["--sweep-checkpoint", ckpt, "--sketch-directory", sk_dir,
             "--output-distance-cache", cache]
-    out = {}
     with _crash_after(RESUME_CRASH_TILES):
         wall, _, _, _, launches = _run_cli(
             _contig_inputs(path), work, "resume_a", "gpu", flags=full,
@@ -1143,7 +1202,7 @@ def phase_resume(work: str, path: str, names, fams, contig_tsv: bytes,
         _log_run(f"resume-{tag}", wall, m, launches, rec, screened=k1 > 0,
                  verified=tag != "e")
         check(clusters == contig_tsv,
-              f"({tag}) clusters.tsv differs from phase 9's")
+              f"({tag}) clusters.tsv differs from the default run's")
         check(launches["K1"] == k1,
               f"({tag}) launched K1 {launches['K1']} times, want {k1}")
         check(k5 is None and launches["K5"] > 0 or launches["K5"] == k5,
@@ -1166,7 +1225,8 @@ def phase_resume(work: str, path: str, names, fams, contig_tsv: bytes,
                           f"in {c['screen_host_row_upload_s']:.3f} s, verify "
                           f"streams {int(c['verify_stream_upload_bytes'])} "
                           f"bytes in {c['verify_stream_upload_s']:.3f} s")
-        log("resume", f"({tag}) OK: clusters.tsv identical to phase 9's; K1 "
+        log("resume", f"({tag}) OK: clusters.tsv identical to the default "
+                      f"run's; K1 "
                       f"{launches['K1']}, K5 {launches['K5']}; wall "
                       f"{wall:.2f} s")
         out[tag] = launches
@@ -1419,12 +1479,260 @@ def phase_parity(work: str) -> None:
                       f"CPU {wall_c:.2f} s, GPU {wall_g:.2f} s")
 
 
+def _shard_devices():
+    """Phase 14's shards: every visible card, or two shards on cuda:0
+    when there is one."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 else [
+        torch.device("cuda", 0)] * 2
+
+
+def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
+                 contig_pairs, contig_tsv: bytes, contig_tiles: int,
+                 paths, fam_ids, ref_pairs) -> dict:
+    """The contig path over the shards: the sharded triangle (and under
+    GALAH_TPU_ROWSHARD=1 the row-sharded one) must give phase 9's
+    candidate pairs and ANI bit for bit, its clusters.tsv, and K1
+    launches by shard that sum to phase 9's tiles; the reference mode
+    over the shards must give phase 7's pairs. Returns {run: K1 by
+    shard}."""
+    import numpy as np
+    import torch
+
+    devices = _shard_devices()
+    log("shards", f"{len(devices)} shards on {[str(d) for d in devices]}; "
+                  f"{nvidia_smi_line()}")
+    out = {}
+    for tag, env in (("sharded", {}),
+                     ("rowsharded", {"GALAH_TPU_ROWSHARD": "1"})):
+        torch.cuda.reset_peak_memory_stats()
+        wall, m, clusters, rec, launches = _run_cli(
+            _contig_inputs(contig_path), work, f"shards_{tag}", "gpu",
+            env=env, devices=devices)
+        _log_run(f"shards-{tag}", wall, m, launches, rec)
+        by_shard = launches["K1 by shard"]
+        dense = int(m["counters"].get("screen_rowshard_dense_tiles", 0))
+        log("shards", f"{tag}: K1 by shard {json.dumps(by_shard)}; tiles "
+                      f"decided on their bfloat16 containment by the "
+                      f"row-sharded stream rule: {dense}")
+        check(sorted(by_shard) == list(range(len(devices)))
+              and sum(by_shard.values()) == launches["K1"] == contig_tiles,
+              f"{tag}: K1 by shard {by_shard}, {launches['K1']} in all, "
+              f"phase 9 had {contig_tiles} tiles")
+        check("phases_overlapped" not in m["counters"],
+              f"{tag}: the phases overlapped over several shards")
+        pp, pa = _sorted_pairs(rec["pairs"])
+        check(np.array_equal(pp, contig_pairs[0]),
+              f"{tag}: candidate pairs differ from phase 9's")
+        check(np.array_equal(pa.view(np.int32),
+                             contig_pairs[1].view(np.int32)),
+              f"{tag}: screen ANI differs from phase 9's ({dense} dense "
+              "tiles)")
+        check(clusters == contig_tsv,
+              f"{tag}: clusters.tsv differs from phase 9's")
+        _families_exact(clusters, contig_names, contig_fams)
+        log("shards", f"{tag} OK: phase 9's {len(pp)} candidate pairs and "
+                      f"ANI bit for bit, its clusters.tsv; wall {wall:.2f} s")
+        out[tag] = by_shard
+    _, inputs = _reference_inputs(work, "shards_reference", paths, fam_ids)
+    torch.cuda.reset_peak_memory_stats()
+    wall, m, clusters, rec, launches = _run_cli(
+        inputs, work, "shards_reference", "gpu", devices=devices)
+    _log_run("shards-reference", wall, m, launches, rec)
+    got = rec["pairs"]
+    check(np.array_equal(got.pairs, ref_pairs.pairs)
+          and np.array_equal(got.ani_est.view(np.int32),
+                             ref_pairs.ani_est.view(np.int32)),
+          "the sharded rectangle's pairs differ from phase 7's")
+    n = _families_exact(clusters, paths, fam_ids)
+    check(n == MAIN_GENOMES[0], f"sharded reference: {n} clusters")
+    log("shards", f"reference OK: phase 7's {len(got.pairs)} pairs and ANI "
+                  f"bit for bit, {n} clusters; K1 by shard "
+                  f"{json.dumps(launches['K1 by shard'])}; wall {wall:.2f} s")
+    out["reference"] = launches["K1 by shard"]
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
+                    contig_path: str, contig_names, contig_fams,
+                    contig_tsv: bytes, contig_tiles: int) -> dict:
+    """This script again as RANKS processes joined by gloo on localhost
+    (one card a rank, or every rank on cuda:0 with one card), each
+    running the API on the main corpus (cluster_genomes) and on the
+    contig corpus (cluster_contigs). Each rank's clusters.tsv must be
+    phase 5's and phase 9's; each rank sketches its share of the genomes
+    through K5 and every contig; the ranks' K1 launches on the contig
+    corpus sum to phase 9's tiles. A rank that fails, or the time limit,
+    fails the phase (every rank is killed). Returns each rank's
+    report."""
+    import torch
+
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for rank in range(RANKS):
+        env = dict(os.environ)
+        env.pop("GALAH_TPU_PLATFORM", None)
+        if n_cards > 1:
+            env["CUDA_VISIBLE_DEVICES"] = str(rank % n_cards)
+        logs.append(open(os.path.join(work, f"rank{rank}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank",
+             str(rank), "--ranks", str(RANKS), "--port", port, "--work",
+             work, "--corpus", corpus, "--contigs", contig_path],
+            stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
+    try:
+        for rank, p in enumerate(procs):
+            left = RANK_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                rc = p.wait(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                rc = None
+            logs[rank].seek(0)
+            tail = logs[rank].read()[-4000:]
+            check(rc == 0, f"rank {rank} exited {rc}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    reports = []
+    for rank in range(RANKS):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    for r in reports:
+        log("processes", f"rank {r['rank']}: " + json.dumps(
+            {k: v for k, v in r.items() if not k.endswith("_tsv")}))
+    for r in reports:
+        check(r["main_tsv"] == main_tsv.decode(),
+              f"rank {r['rank']}: cluster_genomes' clusters.tsv differs "
+              "from phase 5's")
+        check(r["contigs_tsv"] == contig_tsv.decode(),
+              f"rank {r['rank']}: cluster_contigs' clusters.tsv differs "
+              "from phase 9's")
+        check(r["main"]["genomes_sketched"] == len(paths) // RANKS
+              and r["main"]["launches"]["K5"] > 0,
+              f"rank {r['rank']}: sketched {r['main']['genomes_sketched']} "
+              f"genomes, K5 {r['main']['launches']['K5']}")
+        check(r["contigs"]["contigs_sketched"] == len(contig_names),
+              f"rank {r['rank']}: sketched {r['contigs']['contigs_sketched']}"
+              " contigs")
+    main_k1 = [r["main"]["launches"]["K1"] for r in reports]
+    contig_k1 = [r["contigs"]["launches"]["K1"] for r in reports]
+    check(sorted(main_k1) == [0] * (RANKS - 1) + [1],
+          f"main corpus K1 by rank {main_k1}, want one launch in all")
+    check(sum(contig_k1) == contig_tiles and min(contig_k1) > 0,
+          f"contig corpus K1 by rank {contig_k1}, phase 9 had "
+          f"{contig_tiles} tiles")
+    log("processes", f"OK: {RANKS} ranks, phase 5's and phase 9's "
+                     f"clusters.tsv on every rank; K1 by rank {main_k1} "
+                     f"(main) and {contig_k1} (contigs); wall {wall:.2f} s "
+                     "from start to the last rank's exit")
+    return {"wall_s": wall, "reports": reports}
+
+
+def _rank_run(tag: str, fn) -> dict:
+    """fn() with every kernel count set to 0 just before and read just
+    after; its result and a report of its counters."""
+    import torch
+
+    from galah_tpu_torch.utils import metrics
+
+    counters = _launch_counters()
+    for k in counters.values():
+        k.launches = 0
+    counters["K1"].per_shard.clear()
+    m = metrics.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    wall = time.perf_counter() - t0
+    c = m.counters
+    return res, {
+        "wall_s": wall,
+        "launches": {k: f.launches for k, f in counters.items()},
+        "genomes_sketched": c.get("genomes_sketched"),
+        "contigs_sketched": c.get("contigs_sketched"),
+        "sketch_exchange_bytes": c.get("sketch_exchange_bytes"),
+        "sketch_exchange_s": c.get("sketch_exchange_s"),
+        "verify_mp_pairs_local": c.get("verify_mp_pairs_local"),
+        "screen_tiles": c.get("screen_tiles"),
+        "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "phases_s": dict(m.phases),
+    }
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 15 (chip_smoke.py --rank R --ranks N --port P
+    --work W --corpus C --contigs F): joins the process group, runs
+    cluster_genomes over the main corpus and cluster_contigs over the
+    contig corpus on its card, and writes its clusters and counters to
+    W/rankR.json."""
+    import argparse
+    import glob
+    import logging
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--rank", "--ranks", "--port"):
+        ap.add_argument(flag, type=int, required=True)
+    for flag in ("--work", "--corpus", "--contigs"):
+        ap.add_argument(flag, required=True)
+    a = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from galah_tpu_torch import api
+    from galah_tpu_torch.parallel.mesh import initialize_distributed
+
+    logging.basicConfig(level=logging.INFO,
+                        format=f"[rank {a.rank}] %(name)s: %(message)s")
+    initialize_distributed(f"localhost:{a.port}", a.ranks, a.rank,
+                           timeout_s=RANK_TIMEOUT_S)
+    device = [torch.device("cuda", 0)]
+    threads = max(1, min(8, os.cpu_count() or 1) // a.ranks)
+    paths = sorted(glob.glob(os.path.join(a.corpus, "*.fna")))
+    res, main_report = _rank_run("main", lambda: api.cluster_genomes(
+        paths, api.ClusterParameters(ani=95, threads=threads),
+        device=device))
+    main_tsv = "".join(f"{c[0]}\t{m}\n" for c in res.memberships()
+                       for m in c)
+    res, contig_report = _rank_run("contigs", lambda: api.cluster_contigs(
+        [a.contigs], api.ClusterParameters(ani=95, small_genomes=True,
+                                           threads=threads),
+        device=device))
+    contigs_tsv = "".join(f"{c[0]}\t{m}\n" for c in res.memberships()
+                          for m in c)
+    with open(os.path.join(a.work, f"rank{a.rank}.json"), "w") as f:
+        json.dump({"rank": a.rank, "device": torch.cuda.get_device_name(0),
+                   "main": main_report, "contigs": contig_report,
+                   "main_tsv": main_tsv, "contigs_tsv": contigs_tsv}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if len(sys.argv) > 1:
+        return rank_main(sys.argv[1:])
     sys.path.insert(0, str(ROOT))
     # Fail before printing anything when the program is not beside us.
     import galah_tpu_torch.cli.main  # noqa: F401
@@ -1443,15 +1751,20 @@ def main() -> int:
         main_launches, main_tsv = phase_main_path(work, corpus, paths,
                                                   fam_ids)
         k2_launches = phase_popcount_path(work, corpus, main_tsv)
-        phase_reference(work, paths, fam_ids)
+        ref_pairs = phase_reference(work, paths, fam_ids)
         phase_low_memory(work, paths, fam_ids)
-        contig_launches, contig_tsv, contig_tiles = phase_contig_path(
-            work, contig_path, contig_names, contig_fams)
-        resume = phase_resume(work, contig_path, contig_names, contig_fams,
-                              contig_tsv, contig_tiles)
+        contig_launches, contig_tsv, contig_tiles, contig_pairs = (
+            phase_contig_path(work, contig_path, contig_names, contig_fams))
+        resume = phase_resume(work)
         phase_surface(work, corpus, paths, fam_ids, main_tsv)
         phase_scale()
         phase_parity(work)
+        shards = phase_shards(work, contig_path, contig_names, contig_fams,
+                              contig_pairs, contig_tsv, contig_tiles, paths,
+                              fam_ids, ref_pairs)
+        ranks = phase_processes(work, corpus, paths, fam_ids, main_tsv,
+                                contig_path, contig_names, contig_fams,
+                                contig_tsv, contig_tiles)["reports"]
     print(json.dumps({"kernels": [
         {
             "name": "packed_intersect_counts",
@@ -1461,6 +1774,10 @@ def main() -> int:
             "launches": main_launches["K1"],
             "launches_contig_path": contig_launches["K1"],
             "launches_resume_path": {k: v["K1"] for k, v in resume.items()},
+            "launches_by_shard": shards,
+            "launches_by_rank": {
+                corpus_tag: [r[corpus_tag]["launches"]["K1"] for r in ranks]
+                for corpus_tag in ("main", "contigs")},
             **kernels["packed_intersect_counts"],
         },
         {
@@ -1493,6 +1810,9 @@ def main() -> int:
             "launches": main_launches["K5"],
             "launches_contig_path": contig_launches["K5"],
             "launches_resume_path": {k: v["K5"] for k, v in resume.items()},
+            "launches_by_rank": {
+                corpus_tag: [r[corpus_tag]["launches"]["K5"] for r in ranks]
+                for corpus_tag in ("main", "contigs")},
             **k5,
         },
     ]}))

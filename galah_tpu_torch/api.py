@@ -6,11 +6,15 @@ GalahClustererCommandDefinition indirection
 equivalent surface for Python embedders: construct engines and run the
 greedy clustering without touching the CLI.
 
-Each entry point takes `device`, where its native engines run: None
-resolves it as the CLI does (utils/device.py), so the API runs on the
-card unless the caller passes torch.device("cpu") or sets
-GALAH_TPU_PLATFORM=cpu, and stops without a CUDA device otherwise. The
-finch, skani and fastANI methods never touch the device.
+Each entry point takes `device`, where its native engines run: one
+device, or a sequence of devices, the shards (a device may repeat; the
+first is the main device). None resolves every local device as the CLI
+does (utils/device.py::resolve_devices), so the API runs on the card(s)
+unless the caller passes torch.device("cpu") or sets
+GALAH_TPU_PLATFORM=cpu, and stops without a CUDA device otherwise. In a
+process group (parallel/mesh.py::initialize_distributed) every process
+calls the entry point with the same arguments and gets the same result.
+The finch, skani and fastANI methods never touch the device.
 
 The port's own copy of galah_tpu/api.py, so that the port imports
 nothing of galah_tpu: same behaviour, file formats and numerics.
@@ -19,11 +23,15 @@ nothing of galah_tpu: same behaviour, file formats and numerics.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 
 from galah_tpu_torch import defaults
+
+
+# One device, or the shards.
+Devices = Union[torch.device, Sequence[torch.device]]
 
 
 @dataclass
@@ -56,7 +64,7 @@ def cluster_genomes(
     genome_fasta_paths: Sequence[str],
     params: Optional[ClusterParameters] = None,
     reference_genomes: Optional[Sequence[str]] = None,
-    device: Optional[torch.device] = None,
+    device: Optional[Devices] = None,
 ) -> ClusterResult:
     """Dereplicate genomes given in priority order (highest quality
     first — order the list yourself or use
@@ -82,7 +90,7 @@ def cluster_genomes(
 def cluster_contigs(
     fasta_paths: Sequence[str],
     params: Optional[ClusterParameters] = None,
-    device: Optional[torch.device] = None,
+    device: Optional[Devices] = None,
 ) -> "ContigClusterResult":
     """Cluster individual contigs across the given FASTA files
     (--cluster-contigs). params.small_genomes selects the dense
@@ -130,7 +138,7 @@ def pairwise_ani(
     fasta1: str,
     fasta2: str,
     params: Optional[ClusterParameters] = None,
-    device: Optional[torch.device] = None,
+    device: Optional[Devices] = None,
 ) -> Optional[float]:
     """Single-pair ANI through the native engine (percent, or None when
     the aligned-fraction filter fails)."""
@@ -156,14 +164,14 @@ def _frac(x: float) -> float:
     return x / 100.0 if x > 1.0 else x
 
 
-def _device(device: Optional[torch.device]) -> torch.device:
-    from galah_tpu_torch.utils.device import resolve_device
+def _device(device: Optional[Devices]) -> Devices:
+    from galah_tpu_torch.utils.device import resolve_devices
 
-    return device if device is not None else resolve_device()
+    return device if device is not None else resolve_devices()
 
 
 def _build_engines(p: ClusterParameters,
-                   device: Optional[torch.device] = None):
+                   device: Optional[Devices] = None):
     ani_frac = _frac(p.ani)
     pre_frac = _frac(p.precluster_ani)
     af_frac = _frac(p.min_aligned_fraction)

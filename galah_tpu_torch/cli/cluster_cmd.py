@@ -15,9 +15,11 @@ fastani; the resume artifacts --sketch-directory, --sweep-checkpoint,
 --output-distance-cache and --input-distance-cache, in the JAX
 package's file formats.
 
-The device is resolved only when a native engine is built, so a
+The devices are resolved only when a native engine is built, so a
 finch/skani/fastANI run never touches the card; a native run stops
-without a CUDA device unless GALAH_TPU_PLATFORM=cpu.
+without a CUDA device unless GALAH_TPU_PLATFORM=cpu. Every visible card
+is a shard (utils/device.py::resolve_devices): with one card and one
+process the run takes the single-device path.
 """
 
 from __future__ import annotations
@@ -168,8 +170,9 @@ def add_cluster_arguments(sub: argparse.ArgumentParser) -> None:
 
 def run_cluster(args: argparse.Namespace,
                 device: Optional[torch.device] = None) -> None:
-    """The `cluster` subcommand. device: where a native engine runs;
-    None resolves it (utils/device.py) when one is built."""
+    """The `cluster` subcommand. device: where a native engine runs (a
+    device or the shards); None resolves every local device
+    (utils/device.py) when one is built."""
     set_log_level(args)
     run_metrics = metrics.reset()
     genome_fasta_files = parse_list_of_genome_fasta_files(args)
@@ -401,7 +404,7 @@ def generate_galah_clusterer(
         nonlocal native_ctx
         if native_ctx is None:
             from galah_tpu_torch.engines.native import NativeContext
-            from galah_tpu_torch.utils.device import resolve_device
+            from galah_tpu_torch.utils.device import resolve_devices
 
             # Approximate the largest genome from file sizes so bitmap
             # widths fit the dataset (the reference's rule).
@@ -411,7 +414,7 @@ def generate_galah_clusterer(
             except OSError:
                 max_len = None
             native_ctx = NativeContext(
-                device if device is not None else resolve_device(),
+                device if device is not None else resolve_devices(),
                 small_genomes=small_genomes,
                 fragment_length=args.fragment_length,
                 threads=args.threads,
@@ -419,7 +422,8 @@ def generate_galah_clusterer(
                 max_genome_length=max_len,
                 sketch_directory=getattr(args, "sketch_directory", None),
             )
-            logger.info("Native engine on %s", native_ctx.device)
+            logger.info("Native engine on %s",
+                        ", ".join(map(str, native_ctx.devices)))
         return native_ctx
 
     ani_semantics = getattr(args, "ani_semantics",

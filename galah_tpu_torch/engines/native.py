@@ -47,6 +47,18 @@ The resume artifacts are the JAX package's, in its file formats:
   streaming (low-memory) sweep and the reference rectangle warn that
   they do not checkpoint.
 The reference engine's u8 indicator screen raises "not yet supported".
+
+Over several shards (NativeContext given several devices) or several
+processes (parallel/mesh.py) the screens are the sharded sweeps of
+parallel/distance.py, under the JAX package's conditions: the
+replicated triangle (with the sweep checkpoint), the row-sharded
+triangle under --low-memory, the replicated rectangle in
+reference-genome mode; an explicit GALAH_TPU_SCREEN keeps the
+single-device screens. The phases do not overlap there. With several
+processes the genomes are sketched round robin across them and the
+sketches exchanged (GALAH_TPU_MP_SKETCH=0 on process 0 sketches every
+genome in every process), and verify partitions its pairs
+(ops/fragment_ani.py). Every process returns the same cache.
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ import os
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,6 +88,8 @@ from galah_tpu_torch.ops.prefilter import (
     screen_rectangle_packed,
     screen_triangle_packed,
 )
+from galah_tpu_torch.parallel import distance
+from galah_tpu_torch.parallel.mesh import process_count, process_index
 from galah_tpu_torch.sketch.fracminhash import (
     NativeSketch,
     NativeSketchParams,
@@ -358,14 +372,16 @@ class _VerifyFeeder:
 
 class NativeContext:
     """Shared state: sketch params, the sketch store, and the
-    fragment-ANI engine on `device`. sketch_directory: the persistent
-    cross-run sketch cache (--sketch-directory), keyed by unit,
-    parameters and source-file signature, so a re-run reuses its
-    sketches instead of sketching again."""
+    fragment-ANI engine on `device`: one device, or a sequence of them,
+    the shards (a device may repeat), whose first is the main device
+    where sketching runs. sketch_directory: the persistent cross-run
+    sketch cache (--sketch-directory), keyed by unit, parameters and
+    source-file signature, so a re-run reuses its sketches instead of
+    sketching again."""
 
     def __init__(
         self,
-        device: torch.device,
+        device: Union[torch.device, Sequence[torch.device]],
         small_genomes: bool = False,
         fragment_length: Optional[int] = None,
         threads: int = 4,
@@ -386,7 +402,9 @@ class NativeContext:
             )
             if max_genome_length:
                 self.params = _shrink_bits(self.params, max_genome_length)
-        self.device = device
+        self.devices = ([device] if isinstance(device, torch.device)
+                        else list(device))
+        self.device = self.devices[0]
         self._sketched_any = False
         self.threads = max(1, threads)
         self.low_memory = low_memory
@@ -420,7 +438,7 @@ class NativeContext:
                 member_bits=self.params.member_bits,
                 min_fragment_hashes=self.params.min_fragment_hashes,
             ),
-            device,
+            self.devices,
         )
 
     def _widen_for_low_af(
@@ -555,36 +573,70 @@ class NativeContext:
         in `paths` order: a list, or in low-memory mode a lazy view that
         loads them from the store on access. extra_sink(names, sketches,
         device products), when given, sees each device-sketch batch
-        after its adoption (the pipeline's screen feed)."""
+        after its adoption (the pipeline's screen feed).
+
+        With several processes (and GALAH_TPU_MP_SKETCH not 0 on
+        process 0) each process sketches every nproc-th missing genome
+        and the sketches are exchanged (parallel/mp.py); the received
+        ones are host sketches, uploaded when verify needs them.
+        genomes_sketched and sketch_bases count this process's share,
+        sketch_exchange_bytes and sketch_exchange_s the exchange."""
+        from galah_tpu_torch.parallel.mp import governed_flag
+
         missing = [p for p in dict.fromkeys(paths) if p not in self._store]
         if missing:
             logger.info("Sketching %d genomes ..", len(missing))
             self._sketched_any = True
-            bases = 0
-            with metrics.current().phase("sketch"):
-                if _use_device_sketch(self.device):
-                    bases = self._sketch_on_device(
-                        missing, _chain_sinks(self._adopt, extra_sink))
-                elif self.threads > 1 and len(missing) > 1:
-                    with ThreadPoolExecutor(max_workers=self.threads) as ex:
-                        sketches = ex.map(
-                            lambda p: sketch_file_native(p, self.params),
-                            missing,
-                        )
-                        for p, sk in zip(missing, sketches):
-                            self._store.put(p, sk)
-                            bases += sk.total_len
+            m = metrics.current()
+            with m.phase("sketch"):
+                nproc = process_count()
+                if (nproc > 1 and len(missing) > 1
+                        and governed_flag("GALAH_TPU_MP_SKETCH")):
+                    from galah_tpu_torch.parallel.mp import exchange_sketches
+
+                    mine = missing[process_index()::nproc]
+                    bases = self._sketch_local(mine) if mine else 0
+                    logger.info("Sketched %d/%d genomes locally; exchanging "
+                                "across %d processes", len(mine),
+                                len(missing), nproc)
+                    t0 = time.perf_counter()
+                    sent, received = exchange_sketches(
+                        missing, self._store.get, self._store.put,
+                        expect_params=self.params)
+                    m.count("sketch_exchange_bytes", sent + received)
+                    m.count("sketch_exchange_s", time.perf_counter() - t0)
+                    sketched_here = len(mine)
                 else:
-                    for p in missing:
-                        sk = sketch_file_native(p, self.params)
-                        self._store.put(p, sk)
-                        bases += sk.total_len
-            metrics.current().count("genomes_sketched", len(missing))
-            metrics.current().count("sketch_bases", bases)
+                    bases = self._sketch_local(missing, extra_sink)
+                    sketched_here = len(missing)
+            m.count("genomes_sketched", sketched_here)
+            m.count("sketch_bases", bases)
             logger.info("Finished sketching genomes")
         if self.low_memory:
             return _LazySketchList(self._store, list(paths))
         return [self._store.get(p) for p in paths]
+
+    def _sketch_local(self, missing: Sequence[str], extra_sink=None) -> int:
+        """Sketch `missing` in this process into the store: on the device
+        (each batch adopted, then handed to extra_sink) or by the host
+        sketcher. Returns the bases sketched."""
+        bases = 0
+        if _use_device_sketch(self.device):
+            bases = self._sketch_on_device(
+                missing, _chain_sinks(self._adopt, extra_sink))
+        elif self.threads > 1 and len(missing) > 1:
+            with ThreadPoolExecutor(max_workers=self.threads) as ex:
+                sketches = ex.map(
+                    lambda p: sketch_file_native(p, self.params), missing)
+                for p, sk in zip(missing, sketches):
+                    self._store.put(p, sk)
+                    bases += sk.total_len
+        else:
+            for p in missing:
+                sk = sketch_file_native(p, self.params)
+                self._store.put(p, sk)
+                bases += sk.total_len
+        return bases
 
     def sketch_contigs(self, paths: Sequence[str],
                        extra_sink=None) -> List[NativeSketch]:
@@ -720,22 +772,32 @@ class NativePreclusterer(PreclusterDistanceFinder):
             )
         return sketches
 
+    def _sharded(self) -> bool:
+        """Whether the screens are the sharded sweeps: several shards
+        or processes and no explicit GALAH_TPU_SCREEN (the JAX package's
+        condition, jax.device_count() > 1, counts every process's
+        devices)."""
+        return (os.environ.get("GALAH_TPU_SCREEN") is None
+                and (len(self.ctx.devices) > 1 or process_count() > 1))
+
     def _pipeline_enabled(self, n_units: int) -> bool:
         """Whether sketch, screen and verify overlap (the reference's
         rule, galah_tpu/engines/native.py::_pipeline_enabled): the
-        resident packed screen fed by device sketching, so not under
-        low memory, not with GALAH_TPU_RESIDENT=0 or another screen, and
-        only for a matrix within _device_resident_budget. There is one
-        device, so the reference's device-count test has nothing to
-        test. GALAH_TPU_PIPELINE=0 turns it off; =1 also runs it on host
-        sketches, whose rows all reach the screen after sketching."""
+        single-device resident packed screen fed by device sketching, so
+        not under low memory, not with GALAH_TPU_RESIDENT=0 or another
+        screen, not over several shards or processes, and only for a
+        matrix within _device_resident_budget. GALAH_TPU_PIPELINE=0
+        turns it off; =1 forces it (on the main device) over several
+        shards and on host sketches, whose rows all reach the screen
+        after sketching."""
         env = os.environ.get("GALAH_TPU_PIPELINE")
         if env == "0" or n_units < 2:
             return False
         ctx = self.ctx
         if ctx.low_memory or not _resident():
             return False
-        if env != "1" and not _use_device_sketch(ctx.device):
+        if env != "1" and (not _use_device_sketch(ctx.device)
+                           or self._sharded()):
             return False
         if _screen_backend() != "packed":
             return False
@@ -882,14 +944,22 @@ class NativePreclusterer(PreclusterDistanceFinder):
         logger.info("Screening %d genomes against %d references ..",
                     len(query_idx), len(ref_idx))
         rows = _LazyPackedRows(sketches, bits)
+        if self._sharded() and not ctx.low_memory:
+            logger.info("Reference-mode screening on %d shards of %d "
+                        "processes (sharded rectangle sweep)",
+                        len(ctx.devices), process_count())
+            screen, opts = distance.sharded_screen_rectangle_packed, {
+                "devices": ctx.devices}
+        else:
+            screen, opts = screen_rectangle_packed, {
+                "device": ctx.device, "cache_blocks": not ctx.low_memory}
         res = self._timed_screen(
-            len(query_idx) * len(ref_idx), screen_rectangle_packed,
+            len(query_idx) * len(ref_idx), screen,
             [rows[i] for i in query_idx],
             np.asarray([sketches[i].n_prefilter for i in query_idx]),
             [rows[i] for i in ref_idx],
             np.asarray([sketches[i].n_prefilter for i in ref_idx]),
-            k, min_cont, bits, device=ctx.device,
-            cache_blocks=not ctx.low_memory,
+            k, min_cont, bits, **opts,
         )
         if len(res.pairs) == 0:
             return SortedPairDistanceCache()
@@ -942,27 +1012,42 @@ class NativePreclusterer(PreclusterDistanceFinder):
         min_cont = _screen_min_containment(
             self.threshold, self.min_aligned_threshold, k
         )
-        if _screen_backend() == "popcount":
+        sizes = np.asarray([s.n_prefilter for s in sketches])
+        names = [s.name for s in sketches] if self.sweep_checkpoint else None
+        if self._sharded() and ctx.low_memory:
+            # The row-sharded sweep holds about n / shards rows a shard,
+            # fed lazily from the low-memory sketch store.
+            self._warn_checkpoint_unsupported("row-sharded low-memory")
+            logger.info("Screening on %d shards of %d processes (row-sharded "
+                        "sweep fed from the low-memory sketch store)",
+                        len(ctx.devices), process_count())
+            screen = distance.sharded_screen_triangle_rowsharded
+            opts = {"devices": ctx.devices}
+        elif self._sharded():
+            logger.info("Screening on %d shards of %d processes (sharded "
+                        "tile sweep)", len(ctx.devices), process_count())
+            screen = distance.sharded_screen_triangle_packed
+            opts = {"devices": ctx.devices,
+                    "checkpoint_path": self.sweep_checkpoint,
+                    "unit_names": names}
+        elif _screen_backend() == "popcount":
             self._warn_checkpoint_unsupported("popcount")
-            screen, opts = screen_triangle_popcount, {}
+            screen, opts = screen_triangle_popcount, {"device": ctx.device}
         else:
             # The streaming (low-memory) sweep warns that it does not
             # checkpoint.
             screen = screen_triangle_packed
             opts = {
+                "device": ctx.device,
                 "cache_blocks": not ctx.low_memory,
                 "matrix_builder": (None if ctx.low_memory
                                    else ctx.pref_matrix_builder(sketches)),
                 "checkpoint_path": self.sweep_checkpoint,
-                "unit_names": ([s.name for s in sketches]
-                               if self.sweep_checkpoint and not ctx.low_memory
-                               else None),
+                "unit_names": None if ctx.low_memory else names,
             }
         res = self._timed_screen(
-            n * (n - 1) // 2, screen,
-            _LazyPackedRows(sketches, bits),
-            np.asarray([s.n_prefilter for s in sketches]),
-            k, min_cont, bits, device=ctx.device, **opts,
+            n * (n - 1) // 2, screen, _LazyPackedRows(sketches, bits), sizes,
+            k, min_cont, bits, **opts,
         )
         if len(res.pairs) == 0:
             return SortedPairDistanceCache()

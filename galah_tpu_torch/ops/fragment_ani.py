@@ -21,6 +21,15 @@ Both read the query side's fragment streams from the stream arena
 it device to device as each sketch batch completes, host streams are
 uploaded into it once per residency. GALAH_TPU_ARENA=0 turns the arena
 off: every dispatch uploads its streams, as before the arena.
+
+Over several shards (the engine's devices, a device possibly repeated)
+each shard keeps its own bitmap pool and stream arena (_VerifyShard);
+the grouped kernel's sources and the pair table's batches go round
+robin over the first GALAH_TPU_VERIFY_DEVICES shards (verify_devices),
+and device-born products are adopted on the first shard. Over several
+processes, bidirectional() partitions its pairs round robin across
+them and all-gathers the results (GALAH_TPU_MP_VERIFY=0 on process 0
+computes every pair in every process instead).
 """
 
 from __future__ import annotations
@@ -30,13 +39,14 @@ import os
 import time
 from collections import OrderedDict, defaultdict
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from galah_tpu_torch import defaults
 from galah_tpu_torch.ops.pair_table import PairTableConfig, PairTableVerifier
+from galah_tpu_torch.parallel.mesh import process_count, process_index
 from galah_tpu_torch.sketch.fracminhash import NativeSketch
 from galah_tpu_torch.utils import metrics
 from galah_tpu_torch.utils.convert import sketch_tensors, to_device, u32_to_i32
@@ -498,19 +508,67 @@ class StreamArena:
         return self.hashes[h:h + n], self.offsets[o:o + sk.n_fragments + 1] - h
 
 
-class FragmentAniEngine:
-    """Device-side pair-ANI evaluator over NativeSketch data; owns the
-    bitmap pool that both kernels read."""
+def verify_devices(devices: Sequence[torch.device]) -> List[torch.device]:
+    """The shards (local devices) the verify fans its independent
+    dispatches over, round robin: the first GALAH_TPU_VERIFY_DEVICES of
+    them (1 restores the single-device behaviour), else all. Across
+    processes the pair list is partitioned separately (bidirectional)."""
+    devices = list(devices)
+    cap = os.environ.get("GALAH_TPU_VERIFY_DEVICES")
+    if cap is not None:
+        devices = devices[: max(1, int(cap))]
+    return devices
 
-    def __init__(self, cfg: FragmentAniConfig, device: torch.device) -> None:
-        self.cfg = cfg
+
+class _VerifyShard:
+    """One verify shard: its device, and its bitmap pool and stream
+    arena, each allocated on first use (`used` says whether work ever
+    landed here)."""
+
+    def __init__(self, device: torch.device, words: int,
+                 max_cached: int) -> None:
         self.device = device
-        words = cfg.member_bits // 32
-        hard_cap = cfg.max_cached_bitmaps
-        if device.type == "cuda":
-            # ~2 GB of resident bitmaps: 4096 genomes at 2^22 bits.
-            hard_cap = max(hard_cap, (2 << 30) // (words * 4))
-        self.pool = _BitmapPool(words, device, capacity=64, hard_cap=hard_cap)
+        self._words = words
+        self._max_cached = max_cached
+        self._pool: Optional[_BitmapPool] = None
+        self._arena: Optional[StreamArena] = None
+
+    @property
+    def used(self) -> bool:
+        return self._pool is not None
+
+    @property
+    def pool(self) -> _BitmapPool:
+        if self._pool is None:
+            hard_cap = self._max_cached
+            if self.device.type == "cuda":
+                # ~2 GB of resident bitmaps: 4096 genomes at 2^22 bits.
+                hard_cap = max(hard_cap, (2 << 30) // (self._words * 4))
+            self._pool = _BitmapPool(self._words, self.device, capacity=64,
+                                     hard_cap=hard_cap)
+        return self._pool
+
+    def arena(self) -> StreamArena:
+        if self._arena is None:
+            self._arena = StreamArena(self.device,
+                                      *_arena_capacities(self.device))
+        return self._arena
+
+
+class FragmentAniEngine:
+    """Device-side pair-ANI evaluator over NativeSketch data, on one
+    device or over several shards (`devices`, the first the main one);
+    owns each shard's bitmap pool, which both kernels read."""
+
+    def __init__(self, cfg: FragmentAniConfig,
+                 devices: Union[torch.device, Sequence[torch.device]]) -> None:
+        self.cfg = cfg
+        self.devices = ([devices] if isinstance(devices, torch.device)
+                        else list(devices))
+        self.device = self.devices[0]
+        self.shards = [_VerifyShard(d, cfg.member_bits // 32,
+                                    cfg.max_cached_bitmaps)
+                       for d in self.devices]
         bitmap_bytes = cfg.member_bits // 8
         self.pair_table = PairTableVerifier(
             PairTableConfig(
@@ -520,43 +578,49 @@ class FragmentAniEngine:
                 min_fragment_identity=cfg.min_fragment_identity,
                 max_bitmaps=max(64, min(1024, (256 << 20) // bitmap_bytes)),
             ),
-            self.pool,
-            device,
-            arena_fn=self.stream_arena,
+            self.verify_shards,
         )
-        self._arena: Optional[StreamArena] = None
+
+    @property
+    def pool(self) -> _BitmapPool:
+        """The main shard's bitmap pool."""
+        return self.shards[0].pool
+
+    def verify_shards(self) -> List[_VerifyShard]:
+        """The shards verify work goes to (verify_devices)."""
+        return self.shards[:len(verify_devices(self.devices))]
 
     def stream_arena(self) -> StreamArena:
-        """The engine's stream arena, allocated on first use."""
-        if self._arena is None:
-            self._arena = StreamArena(self.device,
-                                      *_arena_capacities(self.device))
-        return self._arena
+        """The main shard's stream arena, allocated on first use."""
+        return self.shards[0].arena()
 
     def adopt_batch(self, keys, sketches: Sequence[NativeSketch],
                     dev) -> None:
-        """Adopt one device-sketch batch's products, with no host round
-        trip: its member bitmaps (dev["member_words"], rows in `keys`
-        order) into the bitmap pool and, unless GALAH_TPU_ARENA=0, its
-        fragment streams (dev["frag_buckets"], dev["stream_off"]) into
-        the stream arena. The host sketches stay the fallback for any
-        key the pool or the arena drops later."""
+        """Adopt one device-sketch batch's products into the main
+        shard, with no host round trip: its member bitmaps
+        (dev["member_words"], rows in `keys` order) into the bitmap pool
+        and, unless GALAH_TPU_ARENA=0, its fragment streams
+        (dev["frag_buckets"], dev["stream_off"]) into the stream arena.
+        The host sketches stay the fallback for any key the pool or the
+        arena drops later, and for the other shards."""
         self.pool.adopt(keys, dev["member_words"], range(len(keys)),
                         [s.member_popcount for s in sketches])
         if _arena_enabled():
             self.stream_arena().adopt(keys, sketches, dev["frag_buckets"],
                                       dev["stream_off"])
 
-    def _query_arrays(self, key, sk: NativeSketch
+    def _query_arrays(self, key, sk: NativeSketch, shard: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A query's (buckets, offsets) on the device: read from the
-        stream arena when its stream is resident there, else uploaded."""
-        if _arena_enabled() and self._arena is not None:
-            got = self._arena.query(key, sk)
+        """A query's (buckets, offsets) on a shard's device: read from
+        its stream arena when the stream is resident there, else
+        uploaded."""
+        sh = self.shards[shard]
+        if _arena_enabled() and sh._arena is not None:
+            got = sh._arena.query(key, sk)
             if got is not None:
                 return got
         metrics.current().count("verify_streams_uploaded", 1)
-        st = sketch_tensors(sk, self.device)
+        st = sketch_tensors(sk, sh.device)
         return st.frag_buckets, st.frag_offsets
 
     def one_to_many_issue(
@@ -565,23 +629,26 @@ class FragmentAniEngine:
         query_key,
         refs: Sequence[NativeSketch],
         ref_keys: Sequence,
+        shard: int = 0,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Queue the grouped kernel for `query`'s fragments against each
-        ref's bitmap, without reading anything back (the reference's
-        one_to_many_async). Returns (ani_pct (R,), af (R,)) on the
-        device."""
+        ref's bitmap on one shard, without reading anything back (the
+        reference's one_to_many_async). Returns (ani_pct (R,), af (R,))
+        on the shard's device."""
         cfg = self.cfg
-        dev = self.device
-        buckets, offsets = self._query_arrays(query_key, query)
+        sh = self.shards[shard]
+        dev = sh.device
+        pool = sh.pool
+        buckets, offsets = self._query_arrays(query_key, query, shard)
         r_chunk = refs_per_dispatch(len(query.frag_buckets),
                                     cfg.max_refs_per_dispatch)
         anis, afs = [], []
         for lo in range(0, len(refs), r_chunk):
             keys = list(ref_keys[lo : lo + r_chunk])
-            self.pool.ensure(keys, list(refs[lo : lo + r_chunk]))
-            rows, pc = self.pool.rows(keys)
+            pool.ensure(keys, list(refs[lo : lo + r_chunk]))
+            rows, pc = pool.rows(keys)
             ani, af = _forward_kernel(
-                self.pool.buffer,
+                pool.buffer,
                 to_device(rows, dev),
                 to_device(pc, dev),
                 buckets,
@@ -611,15 +678,55 @@ class FragmentAniEngine:
         return ani.cpu().numpy(), af.cpu().numpy()
 
     def bidirectional(self, pairs, sketches_by_key):
-        """Bidirectional ANI over key pairs, in this process (the
-        reference's _bidirectional_local; its multi-process partition is
-        not ported). Each undirected pair goes to the pair-table kernel
-        when both streams are at most max_flat_hashes // 8 hashes, else
-        both directions go to the grouped kernel.
-        GALAH_TPU_VERIFY=pairtable|grouped sends every directed pair to
-        that kernel instead, as the reference does; under pairtable a
-        stream over max_flat_hashes raises the pair table's ValueError.
+        """Bidirectional ANI over key pairs. With several processes the
+        pair list is partitioned round robin across them and the (ani,
+        af, af) rows all-gathered, unless process 0 set
+        GALAH_TPU_MP_VERIFY=0. Lockstep contract: every process calls
+        this with the same pair list, which the deterministic host
+        pipeline guarantees. Results are float32 values either way, so
+        the partition changes none of them.
         Returns {(a, b): (ani_pct, af_a_dir, af_b_dir)}."""
+        nproc = process_count()
+        if nproc > 1 and len(pairs) > 0:
+            from galah_tpu_torch.parallel.mp import governed_flag
+
+            partition = governed_flag("GALAH_TPU_MP_VERIFY")
+        else:
+            partition = False
+        if not partition:
+            return self._bidirectional_local(pairs, sketches_by_key)
+        from galah_tpu_torch.parallel.mp import all_gather_equal
+
+        pairs_list = list(pairs)
+        mine = pairs_list[process_index()::nproc]
+        local = self._bidirectional_local(mine, sketches_by_key)
+        metrics.current().count("verify_mp_pairs_local", len(mine))
+        chunk = -(-len(pairs_list) // nproc)
+        vals = np.full((chunk, 3), np.nan, dtype=np.float32)
+        for i, pr in enumerate(mine):
+            vals[i] = local[pr]
+        gathered = all_gather_equal(vals)
+        out = {}
+        for p in range(nproc):
+            for i in range(chunk):
+                gidx = p + i * nproc
+                if gidx >= len(pairs_list):
+                    break
+                a, ff, fr = gathered[p][i]
+                out[pairs_list[gidx]] = (float(a), float(ff), float(fr))
+        return out
+
+    def _bidirectional_local(self, pairs, sketches_by_key):
+        """Bidirectional ANI over key pairs, in this process. Each
+        undirected pair goes to the pair-table kernel when both streams
+        are at most max_flat_hashes // 8 hashes, else both directions go
+        to the grouped kernel. GALAH_TPU_VERIFY=pairtable|grouped sends
+        every directed pair to that kernel instead, as the reference
+        does; under pairtable a stream over max_flat_hashes raises the
+        pair table's ValueError. The grouped kernel's sources go round
+        robin over the verify shards (a stable assignment; every shard
+        does the same float32 arithmetic, so results do not depend on
+        the shard count)."""
         mode = os.environ.get("GALAH_TPU_VERIFY")
         if mode in ("grouped", "pairtable"):
             directed = sorted({d for a, b in pairs for d in ((a, b), (b, a))})
@@ -651,22 +758,28 @@ class FragmentAniEngine:
             for a, b in large_pairs:
                 directed[a].add(b)
             # Every source is queued before any result is read, and one
-            # copy brings them all home (the reference's
+            # copy a shard brings them all home (the reference's
             # one_to_many_async, then collect).
+            n_sh = len(self.verify_shards())
             issued = []
-            for src in sorted(directed):
+            for i, src in enumerate(sorted(directed)):
                 targets = sorted(directed[src])
-                issued.append((src, targets, self.one_to_many_issue(
+                issued.append((src, targets, i % n_sh, self.one_to_many_issue(
                     sketches_by_key[src], src,
                     [sketches_by_key[t] for t in targets], targets,
+                    shard=i % n_sh,
                 )))
-            anis = torch.cat([a for _, _, (a, _) in issued]).cpu().numpy()
-            afs = torch.cat([f for _, _, (_, f) in issued]).cpu().numpy()
-            o = 0
-            for src, targets, _ in issued:
-                for t in targets:
-                    fwd[(src, t)] = (float(anis[o]), float(afs[o]))
-                    o += 1
+            for sh in range(n_sh):
+                mine = [it for it in issued if it[2] == sh]
+                if not mine:
+                    continue
+                anis = torch.cat([a for *_, (a, _) in mine]).cpu().numpy()
+                afs = torch.cat([f for *_, (_, f) in mine]).cpu().numpy()
+                o = 0
+                for src, targets, _, _ in mine:
+                    for t in targets:
+                        fwd[(src, t)] = (float(anis[o]), float(afs[o]))
+                        o += 1
         out = {}
         for a, b in pairs:
             ani_f, af_f = fwd[(a, b)]

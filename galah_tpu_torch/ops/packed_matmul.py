@@ -15,8 +15,9 @@ tiles still fill the card; `plan_split_k` picks that split.
 from __future__ import annotations
 
 import functools
+from collections import Counter
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,9 +45,13 @@ def packed_intersect_counts_reference(
     return out.to(torch.int32)
 
 
-def packed_intersect_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def packed_intersect_counts(a: torch.Tensor, b: torch.Tensor,
+                            shard: Optional[int] = None) -> torch.Tensor:
     """(M, N) int32 intersection counts. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel or raises. `shard`, the
+    index of the sharded sweep's shard that issued the tile, is where
+    the launch is also counted in `per_shard` (shards that share a card
+    are told apart by it)."""
     _check(a, b)
     if a.device.type == "cpu":
         return packed_intersect_counts_reference(a, b)
@@ -57,10 +62,13 @@ def packed_intersect_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = launch_counts(load_library().galah_packed_popcount, _launch_plan,
                         a, b)
     packed_intersect_counts.launches += 1
+    if shard is not None:
+        packed_intersect_counts.per_shard[shard] += 1
     return out
 
 
 packed_intersect_counts.launches = 0
+packed_intersect_counts.per_shard = Counter()
 
 # The kernel's tile, K-panel and blocks per SM (csrc/packed_popcount.cu:
 # 81 KiB of shared memory and <= 128 registers a thread, two blocks an

@@ -13,6 +13,8 @@ plain torch on the device:
   them, broadcast with repeat_interleave;
 - target membership bitmaps are rows of the engine's bitmap pool,
   read in place through per-pair row ids;
+- over several shards, batch i runs on shard i mod the shard count,
+  with that shard's arena and pool;
 - per-fragment hit counts are differences of one prefix sum at the
   fragment bounds; the containment/identity epilogue runs per fragment
   and reduces per pair, with identities summed in 2^-14 fixed point
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,16 +152,14 @@ class _Usage:
 
 
 class PairTableVerifier:
-    """Host-side batcher for the pair-table kernel. `pool` is the
-    engine's bitmap pool (ops/fragment_ani.py::_BitmapPool);
-    arena_fn(), when given, its stream arena."""
+    """Host-side batcher for the pair-table kernel. shards_fn() gives
+    the engine's verify shards (ops/fragment_ani.py::_VerifyShard), each
+    with its device, bitmap pool and stream arena; batches go round
+    robin over them."""
 
-    def __init__(self, cfg: PairTableConfig, pool, device: torch.device,
-                 arena_fn: Optional[Callable] = None) -> None:
+    def __init__(self, cfg: PairTableConfig, shards_fn: Callable) -> None:
         self.cfg = cfg
-        self.pool = pool
-        self.device = device
-        self._arena_fn = arena_fn
+        self._shards_fn = shards_fn
 
     def _plan_batches(
         self, directed_pairs: Sequence[Tuple], sketches_by_key: Dict
@@ -224,31 +224,38 @@ class PairTableVerifier:
         self, directed_pairs: Sequence[Tuple], sketches_by_key: Dict
     ) -> Dict[Tuple, Tuple[float, float]]:
         """Evaluate directed (src, tgt) pairs; returns
-        {(src, tgt): (ani_pct, af_src_direction)}. Every batch is issued
-        before any result is read, so batches queue back to back on the
-        device; one device-to-host copy brings all results home. That is
+        {(src, tgt): (ani_pct, af_src_direction)}. Batch i goes to shard
+        i mod the shard count (a stable assignment; results are per pair,
+        so the same at any count). Every batch is issued before any
+        result is read, so batches queue back to back on each device;
+        one device-to-host copy a shard brings its results home. That is
         safe with the arena and the pool rewriting what an earlier batch
         reads, because every write is queued on the same stream after
         the kernels queued before it."""
         batches = self._plan_batches(directed_pairs, sketches_by_key)
         if not batches:
             return {}
-        outs = [self._dispatch(b, sketches_by_key) for b in batches]
-        ani = torch.cat([a for a, _ in outs]).cpu().numpy()
-        af = torch.cat([f for _, f in outs]).cpu().numpy()
+        shards = self._shards_fn()
+        outs = [self._dispatch(b, sketches_by_key, shards[i % len(shards)])
+                for i, b in enumerate(batches)]
         results: Dict[Tuple, Tuple[float, float]] = {}
-        o = 0
-        for batch in batches:
-            for pr in batch:
-                results[pr] = (float(ani[o]), float(af[o]))
-                o += 1
+        for sh in range(min(len(shards), len(batches))):
+            mine = range(sh, len(batches), len(shards))
+            ani = torch.cat([outs[i][0] for i in mine]).cpu().numpy()
+            af = torch.cat([outs[i][1] for i in mine]).cpu().numpy()
+            o = 0
+            for i in mine:
+                for pr in batches[i]:
+                    results[pr] = (float(ani[o]), float(af[o]))
+                    o += 1
         return results
 
-    def _dispatch(self, batch: List[Tuple], sketches_by_key: Dict):
+    def _dispatch(self, batch: List[Tuple], sketches_by_key: Dict, shard):
         cfg = self.cfg
-        dev = self.device
+        dev = shard.device
+        pool = shard.pool
         src_order = list(dict.fromkeys(s for s, _ in batch))
-        streams = self._streams(src_order, sketches_by_key)
+        streams = self._streams(src_order, sketches_by_key, shard)
         ustream, uoffsets, src_start, src_ufrag_start = streams
 
         tgt_order: List = []
@@ -257,8 +264,8 @@ class PairTableVerifier:
             if t not in tgt_index:
                 tgt_index[t] = len(tgt_order)
                 tgt_order.append(t)
-        self.pool.ensure(tgt_order, [sketches_by_key[t] for t in tgt_order])
-        rows, popcounts = self.pool.rows(tgt_order)
+        pool.ensure(tgt_order, [sketches_by_key[t] for t in tgt_order])
+        rows, popcounts = pool.rows(tgt_order)
 
         P = len(batch)
         psrc = np.empty(P, np.int32)
@@ -286,7 +293,7 @@ class PairTableVerifier:
         return _pair_table_kernel(
             ustream,
             uoffsets,
-            self.pool.buffer,
+            pool.buffer,
             up(popcounts),
             up(psrc), up(pfs), up(puf), up(pffs),
             up(pref), up(prow),
@@ -296,21 +303,22 @@ class PairTableVerifier:
             min_ident=cfg.min_fragment_identity,
         )
 
-    def _streams(self, src_order: List, sketches_by_key: Dict):
+    def _streams(self, src_order: List, sketches_by_key: Dict, shard):
         """(streams (U,) int32, fragment offsets int32, {source: its
-        stream's start}, {source: its first offset}) on the device: the
-        stream arena's buffers and spans, or, when a source does not fit
-        the arena or GALAH_TPU_ARENA=0, the batch's own upload."""
+        stream's start}, {source: its first offset}) on the shard's
+        device: its stream arena's buffers and spans, or, when a source
+        does not fit the arena or GALAH_TPU_ARENA=0, the batch's own
+        upload."""
         from galah_tpu_torch.ops.fragment_ani import _arena_enabled
 
-        if self._arena_fn is not None and _arena_enabled():
-            arena = self._arena_fn()
+        if _arena_enabled():
+            arena = shard.arena()
             spans = arena.ensure(src_order, sketches_by_key)
             if all(s in spans for s in src_order):
                 return (arena.hashes, arena.offsets,
                         {s: spans[s][0] for s in src_order},
                         {s: spans[s][1] for s in src_order})
-        return upload_streams(src_order, sketches_by_key, self.device)
+        return upload_streams(src_order, sketches_by_key, shard.device)
 
 
 def upload_streams(src_order: List, sketches_by_key: Dict,

@@ -219,13 +219,17 @@ class _TileQueue:
     the issue/drain split and of the window, for every sweep."""
 
     def __init__(self, bits: int, min_containment: float, block: int,
-                 k: int, *, streaming: bool) -> None:
+                 k: int, *, streaming: bool, cap: int = 0,
+                 shard: Optional[int] = None) -> None:
         self.block = block
         self.bits_f = float(bits)
         self.min_cont_f = float(np.float32(min_containment))
-        self.cap = _screen_cap_for(block)
+        self.cap = cap or _screen_cap_for(block)
         self.inv_k = 1.0 / k
         self.streaming = streaming
+        # The shard whose tiles this queue issues (parallel/distance.py),
+        # passed to K1's wrapper for its per-shard launch count.
+        self.shard = shard
         self.window = TILE_WINDOW
         self.pairs: List[np.ndarray] = []
         self.anis: List[np.ndarray] = []
@@ -257,7 +261,8 @@ class _TileQueue:
               aj: torch.Tensor, *, diag: bool, row0: int, col0: int) -> None:
         """Queue one tile (row block si with sizes ai against column
         block sj with sizes aj) and drain tiles past the window."""
-        counts = packed_intersect_counts(si, sj).to(torch.float32)
+        counts = packed_intersect_counts(si, sj, shard=self.shard).to(
+            torch.float32)
         cont = _containment(counts, ai, aj, self.bits_f)
         mask = cont >= self.min_cont_f
         if diag:
@@ -270,22 +275,23 @@ class _TileQueue:
                 hits.numel(), dtype=torch.int32, pin_memory=True))
             host.copy_(hits, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(hits.device))
         else:
             host = hits
         self._pending.append(_Tile(row0, col0, diag, cont, host, done))
         while len(self._pending) > self.window:
             self._drain(self._pending.popleft())
 
-    def _drain(self, t: _Tile) -> None:
+    def _drain(self, t: _Tile, force_dense: bool = False) -> None:
         """Decode one tile under the reference's overflow rules
-        (_drain_tile) and emit it."""
+        (_drain_tile) and emit it; force_dense decides it on its
+        bfloat16 containment whatever its count."""
         if t.done is not None:
             t.done.synchronize()
         buf = t.host.numpy()
         cap = self.cap
         cnt, rows = int(buf[0]), int(buf[1])
-        dense = cnt > cap or (
+        dense = force_dense or cnt > cap or (
             self.streaming and rows > _row_sel(t.cont.shape[0]))
         if dense:
             mask = _bf16(t.cont) >= self.min_cont_f
@@ -311,6 +317,22 @@ class _TileQueue:
                 t.row0 // self.block, t.col0 // self.block,
                 self.pairs[-1] if got else np.empty((0, 2), np.int64),
                 self.anis[-1] if got else np.empty(0, np.float32))
+
+    def counts(self) -> List[int]:
+        """The hit count of every tile in flight, in issue order, once
+        its copy home has landed (the row-sharded sweep's stage
+        decision; its queue's window holds a whole stage)."""
+        out = []
+        for t in self._pending:
+            if t.done is not None:
+                t.done.synchronize()
+            out.append(int(t.host[0]))
+        return out
+
+    def drain_all(self, force_dense: bool = False) -> None:
+        """Drain every tile in flight, in issue order."""
+        while self._pending:
+            self._drain(self._pending.popleft(), force_dense)
 
     def replay(self, pairs: np.ndarray, anis: np.ndarray) -> None:
         """Emit a logged tile's pairs, as its drain would have."""

@@ -175,7 +175,7 @@ def test_verify_of_device_born_streams_uploads_none(monkeypatch, corpus,
     off = off_ctx.frag_engine
     assert _verify(off, off.pair_table, pairs, off_sks, monkeypatch,
                    mode) == got
-    assert off._arena is None
+    assert off.shards[0]._arena is None
 
     monkeypatch.setenv("GALAH_TPU_VERIFY_DEVICES", "1")
     jeng = jax_fa.FragmentAniEngine(jax_fa.FragmentAniConfig(

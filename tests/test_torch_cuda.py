@@ -731,11 +731,11 @@ def test_kill_and_resume_on_card(cuda_device, tmp_path, monkeypatch):
     real = pf.packed_intersect_counts
     calls = {"n": 0}
 
-    def crashing(a, b):
+    def crashing(a, b, **kw):
         calls["n"] += 1
         if calls["n"] > 5:
             raise RuntimeError("injected crash mid-sweep")
-        return real(a, b)
+        return real(a, b, **kw)
 
     with monkeypatch.context() as mp:
         mp.setattr(pf, "packed_intersect_counts", crashing)
@@ -784,3 +784,41 @@ def test_warm_sketch_directory_on_card(cuda_device, tmp_path, monkeypatch,
     assert c2["screen_rows_host_uploaded"] == n
     assert c2["screen_host_row_bytes"] > 0
     assert c2["verify_streams_uploaded"] > 0
+
+
+@pytest.mark.parametrize("rowshard", ["0", "1"])
+def test_sharded_triangle_two_shards_on_one_card(cuda_device, monkeypatch,
+                                                 rowshard):
+    """Two shards that share the card (told apart by index) give the
+    single-device sweep's pairs and ANI bit for bit, in its order for
+    the replicated sweep; each shard launches K1 for its own tiles
+    (GALAH_TPU_ROWSHARD=1: the row-sharded sweep, whose blocks of 256
+    rows hold no tile past its cap here)."""
+    from galah_tpu_torch.ops.prefilter import screen_triangle_packed
+    from galah_tpu_torch.parallel.distance import (
+        sharded_screen_triangle_packed,
+    )
+
+    ind, packed = _near_duplicate_rows(4, 1500, 60)
+    perm = np.random.default_rng(5).permutation(len(packed))
+    ind, packed = ind[perm], [packed[i] for i in perm]
+    args = (packed, ind.sum(axis=1), 15, 0.69, ind.shape[1])
+    single = screen_triangle_packed(*args, device=cuda_device, block=256)
+    monkeypatch.setenv("GALAH_TPU_ROWSHARD", rowshard)
+    packed_intersect_counts.per_shard.clear()
+    got = sharded_screen_triangle_packed(
+        *args, devices=[cuda_device, cuda_device], block=256)
+    tiles = 6 * 7 // 2
+    per = packed_intersect_counts.per_shard
+    assert sorted(per) == [0, 1] and per[0] + per[1] == tiles
+    if rowshard == "1":
+        got, single = (_lexsorted(r) for r in (got, single))
+    np.testing.assert_array_equal(got.pairs, single.pairs)
+    np.testing.assert_array_equal(got.ani_est.view(np.int32),
+                                  single.ani_est.view(np.int32))
+    assert len(single.pairs) > 700
+
+
+def _lexsorted(res):
+    o = np.lexsort((res.pairs[:, 1], res.pairs[:, 0]))
+    return type(res)(res.pairs[o], res.ani_est[o])

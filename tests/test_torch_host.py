@@ -1,9 +1,10 @@
 """The port's host layer: it imports nothing of the JAX package, and its
 copies of the JAX package's host modules behave as the originals do.
 
-- every program file of the port, and chip_smoke.py, is scanned for
-  imports of `galah_tpu` (a fresh interpreter running the port's CLI
-  in each mode is checked in tests/test_torch_cli.py);
+- every program file of the port (its parallel/ package included), and
+  chip_smoke.py, is scanned for imports of `galah_tpu` and of `jax` (a
+  fresh interpreter running the port's CLI in each mode is checked in
+  tests/test_torch_cli.py);
 - on a `make_families` corpus both packages' `sketch_file_native` give
   identical sketches, with the C++ sketcher and with the numpy one;
 - both `greedy.cluster`s give the same clusters from the same engines;
@@ -48,9 +49,9 @@ SKETCH_FIELDS = ("prefilter_buckets", "frag_buckets", "frag_offsets",
                  "member_buckets")
 
 
-def galah_tpu_imports(source: str):
-    """(line, module) of every import of galah_tpu or galah_tpu.* in
-    `source`, at any depth (lazy imports inside functions included)."""
+def imports_of(source: str, package: str):
+    """(line, module) of every import of `package` or its modules in
+    `source`, at any depth."""
     found = []
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
@@ -60,13 +61,33 @@ def galah_tpu_imports(source: str):
         else:
             continue
         found += [(node.lineno, n) for n in names
-                  if n == "galah_tpu" or n.startswith("galah_tpu.")]
+                  if n == package or n.startswith(package + ".")]
     return found
+
+
+def galah_tpu_imports(source: str):
+    """(line, module) of every import of galah_tpu or galah_tpu.* in
+    `source`, at any depth (lazy imports inside functions included)."""
+    return imports_of(source, "galah_tpu")
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_port_file_imports_nothing_of_galah_tpu(rel):
     assert galah_tpu_imports((REPO / rel).read_text()) == []
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_file_imports_no_jax(rel):
+    assert imports_of((REPO / rel).read_text(), "jax") == []
+
+
+def test_scan_covers_the_parallel_package():
+    """The sharded sweeps and the process group (galah_tpu_torch/
+    parallel/) are among the scanned files."""
+    assert {"galah_tpu_torch/parallel/mesh.py", "galah_tpu_torch/parallel/mp.py",
+            "galah_tpu_torch/parallel/distance.py"} <= set(PORT_FILES)
+    assert imports_of("import jax.numpy as jnp\n", "jax") == [
+        (1, "jax.numpy")]
 
 
 @pytest.mark.parametrize("source,found", [
