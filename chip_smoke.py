@@ -52,6 +52,12 @@ exits non-zero):
 8. low memory: --low-memory over the first 32 families (256 genomes)
    gives a clusters.tsv byte-identical to a default run over the same
    genomes, through K1's streaming sweep;
+8b. indicator: GALAH_TPU_SCREEN=indicator under GALAH_TPU_SCREEN_DTYPE
+   int8, bf16 and f32 on the main corpus must give phase 5's candidate
+   pairs and ANI bit for bit and its clusters.tsv, and in reference mode
+   phase 7's pairs, with K1 never launched (the product is a library
+   call); each run's wall and screen time are printed, then the product
+   at the main tile in each dtype, exact, with its time and bound;
 9. contig path: `--cluster-contigs --small-contigs` over 100,000 synthetic
    5 kb contigs in one FASTA (20,000 families of 5 at 98% ANI) must find
    exactly the 20,000 families, every contig's device sketch equal to
@@ -105,12 +111,29 @@ exits non-zero):
    rank; K1 launches summing to 4,851): every rank's clusters.tsv must
    be phase 5's and phase 9's. It prints each rank's launches, the
    exchange's bytes and seconds and the verify partition's pairs. A rank
-   that fails or outlasts RANK_TIMEOUT_S fails the phase.
+   that fails or outlasts RANK_TIMEOUT_S fails the phase;
+16. large genomes: `cluster` over 8 families of 3 synthetic 10 Mb
+   genomes (98% ANI), whose fragment streams all exceed 2^20 hashes
+   (checked first; the smallest is printed), so every verify takes the
+   grouped path, three times: GALAH_TPU_VERIFY_GATHER=word, =bt and
+   unset (words). Each must find the 8 families with no verify on the
+   pair table; clusters.tsv, ANI and AF must be bit-identical across the
+   three. Then the grouped verify on one stream against 8, 32, 64 and
+   128 references, word against bt (bit-identical), with CUDA-event
+   times, the rows and bytes each gathers, a byte bound and the gathers
+   priced at the gather probe's measured row rates.
+
+On a machine with several cards phases 5-13 and 16 run on the first
+(every entry point that resolves the local devices is given cuda:0
+only), phase 14 takes a shard a card and phase 15 a rank a card.
 
 Each path's kernel launch counts are set to 0 just before its run and
-read just after (by shard and by rank in phases 14 and 15). The C++ sketcher must load: the numpy fallback would
-change the sketch times many times over. The last lines are the kernels' JSON summary, the
-nvidia-smi line and {"ok": true, "device": {...}}. Without a CUDA device
+read just after (by shard and by rank in phases 14 and 15). The C++
+sketcher must load: the numpy fallback would change the sketch times
+many times over. The last lines are the device programs' JSON line (the
+indicator product by dtype, the grouped verify by width and gather,
+phase 16's runs), the kernels' JSON summary, the nvidia-smi line and
+{"ok": true, "device": {...}}. Without a CUDA device
 the script exits 1 and prints no result. The synthetic corpora are
 written under build/ and removed at the end.
 """
@@ -150,9 +173,23 @@ K5_MAIN_GENOMES = 64           # the main path's batch (64 MiB / 2^20)
 K5_CONTIGS = 2_000             # contig-corpus contigs of K5's check
 ANI_TOL = 1e-3                 # percentage points, GPU vs CPU verify ANI
 SCALE_ROWS = 10_240
-RANKS = 2                      # phase 15's processes
+RANKS = 2                      # phase 15's processes on one card
 RANK_TIMEOUT_S = 600           # phase 15's time limit and collective timeout
 SCALE_BITS = 1 << 17
+# Phase 16: genomes large enough that every fragment stream exceeds the
+# pair table's 2^20 hashes (about 1.25M at 10 Mb), so every verify takes
+# the grouped path; 8 families of 3 at 98% ANI (240 Mb).
+LARGE_GENOMES = (8, 3)
+LARGE_LENGTH = 10_000_000
+LARGE_SEED = 17
+GROUPED_MIN_HASHES = 1 << 20
+# The grouped verify's widths timed on one stream (128 is the budget's
+# width at 1.25M hashes), and the gather probe's measured 32-byte-row
+# rates on the H100 (tools/gather_probe.py's run_patterns, rows/s:
+# random and ascending indices into a table beyond the L2), at which
+# its gathers are priced.
+GROUPED_REFS = (8, 32, 64, 128)
+PROBE_ROWS_PER_S = {"random": 3.2e10, "ascending": 6.5e10}
 SCALE_SET_BITS = 5_000         # expected set bits per row
 SCALE_PLANTED = 200
 # (m, n, w) of each kernel's checks: K1 at the packed screen's 1024-row
@@ -211,6 +248,10 @@ GATHER_ITERS = 50
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 INT_ALU_OPS_PER_S = 64 * 132 * 1.98e9
+# The indicator screen's product dtypes and their peaks (operations/s):
+# int8 and bf16 on the tensor cores, float32 on the CUDA cores (TF32
+# stays off, so float32 products do not use the tensor cores).
+INDICATOR_PEAKS = {"int8": INT8_OPS_PER_S, "bf16": 0.989e15, "f32": 67e12}
 
 
 def log(phase: str, msg: str) -> None:
@@ -661,10 +702,11 @@ def _recording():
     import galah_tpu_torch.parallel.distance as dist
 
     rec = {"screen_dev": set(), "verify_dev": set(), "tile_shapes": set(),
-           "pairs": None, "verified": {}, "device_sketches": []}
+           "tiles": 0, "pairs": None, "verified": {}, "device_sketches": []}
     finish = pf.IncrementalPackedScreen.finish
     screens = ("screen_triangle_packed", "screen_triangle_popcount",
-               "screen_rectangle_packed")
+               "screen_rectangle_packed", "screen_triangle",
+               "screen_rectangle")
     sharded = ("sharded_screen_triangle_packed",
                "sharded_screen_rectangle_packed",
                "sharded_screen_triangle_rowsharded",
@@ -674,6 +716,7 @@ def _recording():
         (pc, "_containment"): pc._containment,
         (pt, "_pair_table_kernel"): pt._pair_table_kernel,
         (fa, "_forward_kernel"): fa._forward_kernel,
+        (fa, "_forward_kernel_bt"): fa._forward_kernel_bt,
         (fa.FragmentAniEngine, "bidirectional"):
             fa.FragmentAniEngine.bidirectional,
         (ds, "sketch_host_batch"): ds.sketch_host_batch,
@@ -686,6 +729,7 @@ def _recording():
         def run(counts, *a, **k):
             rec["screen_dev"].add(counts.device.type)
             rec["tile_shapes"].add(tuple(counts.shape))
+            rec["tiles"] += 1
             return fn(counts, *a, **k)
         return run
 
@@ -696,6 +740,10 @@ def _recording():
     def forward_kernel(bitmaps, *a, **k):
         rec["verify_dev"].add(bitmaps.device.type)
         return orig[(fa, "_forward_kernel")](bitmaps, *a, **k)
+
+    def forward_kernel_bt(table, *a, **k):
+        rec["verify_dev"].add(table.device.type)
+        return orig[(fa, "_forward_kernel_bt")](table, *a, **k)
 
     def screen(fn):
         def run(*a, **k):
@@ -718,6 +766,7 @@ def _recording():
     pc._containment = containment(orig[(pc, "_containment")])
     pt._pair_table_kernel = pair_table_kernel
     fa._forward_kernel = forward_kernel
+    fa._forward_kernel_bt = forward_kernel_bt
     fa.FragmentAniEngine.bidirectional = bidirectional
     ds.sketch_host_batch = sketch_host_batch
     # The resident screen's pairs, whether its rows came at once or, with
@@ -753,6 +802,8 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
     given, are the run's shards (the subcommand called with them, as
     the CLI calls it with every local card); K1's launches by shard are
     then under "K1 by shard"."""
+    import torch
+
     from galah_tpu_torch.cli.main import build_parser, main
     from galah_tpu_torch.cli.cluster_cmd import run_cluster
 
@@ -772,6 +823,9 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
         for fn in counters.values():
             fn.launches = 0
         counters["K1"].per_shard.clear()
+        torch.cuda.reset_peak_memory_stats()
+        log(tag, f"device memory held before the run: "
+                 f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB")
         with _recording() as rec:
             t0 = time.perf_counter()
             if devices is None:
@@ -937,14 +991,11 @@ def _check_overlapped(m: dict, phase: str) -> None:
 
 def phase_main_path(work: str, corpus: str, paths, fam_ids):
     """The packed path, sketching on the card; returns (launches,
-    clusters.tsv bytes)."""
+    clusters.tsv bytes, candidate pairs)."""
     from concurrent.futures import ThreadPoolExecutor
-
-    import torch
 
     from galah_tpu_torch.sketch.fracminhash import sketch_file_native
 
-    torch.cuda.reset_peak_memory_stats()
     wall, m, clusters, rec, launches = _run_cli(
         ["-d", corpus, "-x", "fna"], work, "main", "gpu")
     _log_run("main", wall, m, launches, rec)
@@ -967,7 +1018,7 @@ def phase_main_path(work: str, corpus: str, paths, fam_ids):
 
     _check_device_sketches(rec, host, paths, "main")
     log("main", f"OK: {n_clusters} clusters, one per family")
-    return launches, clusters
+    return launches, clusters, rec["pairs"]
 
 
 def phase_popcount_path(work: str, corpus: str, main_tsv: bytes) -> int:
@@ -1027,6 +1078,94 @@ def phase_low_memory(work: str, paths, fam_ids) -> None:
                       "clusters.tsv identical to the default run")
 
 
+def _indicator_product_times(bits: int, tiles: dict) -> dict:
+    """The indicator screen's product in each dtype at the main path's
+    tile (1024 x 1024 rows of `bits` uint8 0/1 bytes): exact counts
+    (checked against a float64 product), CUDA-event ms, and its bound:
+    both blocks read once and the float32 counts written once, against
+    2 m n bits operations at the dtype's tensor-core peak (float32 at the
+    CUDA cores' rate; TF32 stays off). Each dtype is one library call,
+    which is its library_ms. tiles: {dtype: tiles on its main run}."""
+    import torch
+
+    from galah_tpu_torch.ops.prefilter import _indicator_counts
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    m = n = 1024
+    x = (torch.rand((m, bits), generator=gen, device=dev) < 0.05).to(
+        torch.uint8)
+    y = (torch.rand((n, bits), generator=gen, device=dev) < 0.05).to(
+        torch.uint8)
+    want = x.to(torch.float64) @ y.to(torch.float64).t()
+    out = {}
+    for dtype, peak in INDICATOR_PEAKS.items():
+        counts = _indicator_counts(dtype)
+        got = counts(x, y)
+        torch.cuda.synchronize()
+        err = float((got.to(torch.float64) - want).abs().max())
+        check(err == 0, f"indicator product {dtype}: counts differ by {err}")
+        ms = _time_ms(lambda: counts(x, y), 20)
+        bound_ms, bound_by = _bound_ms((m + n) * bits + 4 * m * n,
+                                       2 * m * n * bits, peak)
+        out[dtype] = {"ms": ms, "max_abs_err": err, "launches": tiles[dtype],
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": ms, "shape": f"{m}x{n}x{bits} u8"}
+        log("indicator", f"product {dtype} at {m}x{n}x{bits}: {ms:.4f} ms, "
+                         f"bound {bound_ms:.4f} ms ({bound_by}), exact; "
+                         f"{nvidia_smi_line()}")
+    del x, y, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_indicator(work: str, corpus: str, paths, fam_ids, main_pairs,
+                    main_tsv: bytes, ref_pairs) -> dict:
+    """GALAH_TPU_SCREEN=indicator under each GALAH_TPU_SCREEN_DTYPE on
+    the main corpus must give phase 5's candidate pairs and ANI bit for
+    bit and its clusters.tsv, and in reference mode phase 7's pairs,
+    with K1 never launched; then the product's times by dtype. Returns
+    {dtype: product numbers}."""
+    import numpy as np
+
+    _, ref_inputs = _reference_inputs(work, "indicator_reference", paths,
+                                      fam_ids)
+    want_main = _sorted_pairs(main_pairs)
+    want_ref = _sorted_pairs(ref_pairs)
+    tiles = {}
+    for dtype in INDICATOR_PEAKS:
+        env = {"GALAH_TPU_SCREEN_DTYPE": dtype}
+        for tag, inputs, want in (("main", ["-d", corpus, "-x", "fna"],
+                                   want_main),
+                                  ("reference", ref_inputs, want_ref)):
+            wall, m, clusters, rec, launches = _run_cli(
+                inputs, work, f"indicator_{tag}_{dtype}", "gpu",
+                screen="indicator", env=env)
+            _log_run(f"indicator-{tag}-{dtype}", wall, m, launches, rec)
+            got = _sorted_pairs(rec["pairs"])
+            check(np.array_equal(got[0], want[0])
+                  and np.array_equal(got[1].view(np.int32),
+                                     want[1].view(np.int32)),
+                  f"indicator {tag} {dtype}: candidate pairs or ANI differ "
+                  f"from the packed screen's ({len(got[0])} against "
+                  f"{len(want[0])})")
+            check(launches["K1"] == 0 and launches["K5"] > 0,
+                  f"indicator {tag} {dtype}: launches {launches}")
+            if tag == "main":
+                check(clusters == main_tsv,
+                      f"indicator {dtype}: clusters.tsv differs from phase 5's")
+                tiles[dtype] = rec["tiles"]
+                bits = rec["device_sketches"][0].params.prefilter_bits
+            n = _families_exact(clusters, paths, fam_ids)
+            check(n == MAIN_GENOMES[0], f"indicator {tag} {dtype}: {n} clusters")
+            log("indicator", f"{tag} {dtype} OK: {len(got[0])} pairs and ANI "
+                             f"bit for bit, {n} clusters; wall {wall:.2f} s, "
+                             f"screen {m['phases_s'].get('screen', 0):.4f} s; "
+                             f"{nvidia_smi_line()}")
+    return _indicator_product_times(bits, tiles)
+
+
 def make_contig_corpus(work: str, shape, tag: str):
     """One FASTA of `shape` (families, members) 5 kb contigs."""
     from galah_tpu_torch.utils.synth import make_contig_corpus as make
@@ -1057,11 +1196,9 @@ def phase_contig_path(work: str, path: str, names, fams):
     overlapped run's launches, clusters.tsv bytes, tiles and candidate
     pairs with their ANI (sorted by pair)."""
     import numpy as np
-    import torch
 
     from galah_tpu_torch.sketch.fracminhash import sketch_contigs_native
 
-    torch.cuda.reset_peak_memory_stats()
     wall, m, clusters, rec, launches = _run_cli(
         _contig_inputs(path), work, "contigs", "gpu")
     _log_run("contigs", wall, m, launches, rec)
@@ -1479,6 +1616,35 @@ def phase_parity(work: str) -> None:
                       f"CPU {wall_c:.2f} s, GPU {wall_g:.2f} s")
 
 
+@contextlib.contextmanager
+def _one_card():
+    """The single-device phases on cuda:0 on a machine with several
+    cards: every entry point that resolves the local devices (the CLI,
+    the API, process) gets the first of them only, so the runs take the
+    single-device path their checks expect. A no-op with one card."""
+    import torch
+
+    from galah_tpu_torch.utils import device
+
+    if torch.cuda.device_count() < 2:
+        yield
+        return
+    real = device.resolve_devices
+    device.resolve_devices = lambda platform=None: real(platform)[:1]
+    try:
+        yield
+    finally:
+        device.resolve_devices = real
+
+
+def _ranks() -> int:
+    """Phase 15's processes: one a card, or RANKS on one card."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return n if n > 1 else RANKS
+
+
 def _shard_devices():
     """Phase 14's shards: every visible card, or two shards on cuda:0
     when there is one."""
@@ -1499,7 +1665,6 @@ def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
     over the shards must give phase 7's pairs. Returns {run: K1 by
     shard}."""
     import numpy as np
-    import torch
 
     devices = _shard_devices()
     log("shards", f"{len(devices)} shards on {[str(d) for d in devices]}; "
@@ -1507,7 +1672,6 @@ def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
     out = {}
     for tag, env in (("sharded", {}),
                      ("rowsharded", {"GALAH_TPU_ROWSHARD": "1"})):
-        torch.cuda.reset_peak_memory_stats()
         wall, m, clusters, rec, launches = _run_cli(
             _contig_inputs(contig_path), work, f"shards_{tag}", "gpu",
             env=env, devices=devices)
@@ -1537,7 +1701,6 @@ def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
                       f"ANI bit for bit, its clusters.tsv; wall {wall:.2f} s")
         out[tag] = by_shard
     _, inputs = _reference_inputs(work, "shards_reference", paths, fam_ids)
-    torch.cuda.reset_peak_memory_stats()
     wall, m, clusters, rec, launches = _run_cli(
         inputs, work, "shards_reference", "gpu", devices=devices)
     _log_run("shards-reference", wall, m, launches, rec)
@@ -1566,8 +1729,8 @@ def _free_port() -> int:
 def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
                     contig_path: str, contig_names, contig_fams,
                     contig_tsv: bytes, contig_tiles: int) -> dict:
-    """This script again as RANKS processes joined by gloo on localhost
-    (one card a rank, or every rank on cuda:0 with one card), each
+    """This script again as _ranks() processes joined by gloo on
+    localhost (one card a rank, or RANKS on cuda:0 with one card), each
     running the API on the main corpus (cluster_genomes) and on the
     contig corpus (cluster_contigs). Each rank's clusters.tsv must be
     phase 5's and phase 9's; each rank sketches its share of the genomes
@@ -1579,10 +1742,11 @@ def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
 
     torch.cuda.empty_cache()
     n_cards = torch.cuda.device_count()
+    ranks = _ranks()
     port = str(_free_port())
     t0 = time.perf_counter()
     procs, logs = [], []
-    for rank in range(RANKS):
+    for rank in range(ranks):
         env = dict(os.environ)
         env.pop("GALAH_TPU_PLATFORM", None)
         if n_cards > 1:
@@ -1590,7 +1754,7 @@ def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
         logs.append(open(os.path.join(work, f"rank{rank}.log"), "w+"))
         procs.append(subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--rank",
-             str(rank), "--ranks", str(RANKS), "--port", port, "--work",
+             str(rank), "--ranks", str(ranks), "--port", port, "--work",
              work, "--corpus", corpus, "--contigs", contig_path],
             stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
     try:
@@ -1612,7 +1776,7 @@ def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
             f.close()
     wall = time.perf_counter() - t0
     reports = []
-    for rank in range(RANKS):
+    for rank in range(ranks):
         with open(os.path.join(work, f"rank{rank}.json")) as f:
             reports.append(json.load(f))
     for r in reports:
@@ -1625,7 +1789,7 @@ def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
         check(r["contigs_tsv"] == contig_tsv.decode(),
               f"rank {r['rank']}: cluster_contigs' clusters.tsv differs "
               "from phase 9's")
-        check(r["main"]["genomes_sketched"] == len(paths) // RANKS
+        check(r["main"]["genomes_sketched"] == len(paths) // ranks
               and r["main"]["launches"]["K5"] > 0,
               f"rank {r['rank']}: sketched {r['main']['genomes_sketched']} "
               f"genomes, K5 {r['main']['launches']['K5']}")
@@ -1634,16 +1798,169 @@ def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
               " contigs")
     main_k1 = [r["main"]["launches"]["K1"] for r in reports]
     contig_k1 = [r["contigs"]["launches"]["K1"] for r in reports]
-    check(sorted(main_k1) == [0] * (RANKS - 1) + [1],
+    check(sorted(main_k1) == [0] * (ranks - 1) + [1],
           f"main corpus K1 by rank {main_k1}, want one launch in all")
     check(sum(contig_k1) == contig_tiles and min(contig_k1) > 0,
           f"contig corpus K1 by rank {contig_k1}, phase 9 had "
           f"{contig_tiles} tiles")
-    log("processes", f"OK: {RANKS} ranks, phase 5's and phase 9's "
+    log("processes", f"OK: {ranks} ranks, phase 5's and phase 9's "
                      f"clusters.tsv on every rank; K1 by rank {main_k1} "
                      f"(main) and {contig_k1} (contigs); wall {wall:.2f} s "
                      "from start to the last rank's exit")
     return {"wall_s": wall, "reports": reports}
+
+
+def _grouped_verify_times(sketches) -> dict:
+    """The grouped verify's two gathers on the card for the first
+    sketch's stream against R = GROUPED_REFS references: the corpus's
+    member bitmaps, then random ones (R distinct bitmaps, as R
+    representatives would be). Each width: word and bt
+    bit-identical, CUDA-event ms of each kernel and of the table build,
+    the rows and bytes each gathers, the function's byte bound (stream,
+    offsets and bitmaps read once, results written once) and its
+    gathers priced at the probe's row rates. Returns {R: numbers}."""
+    import numpy as np
+    import torch
+
+    from galah_tpu_torch.ops import fragment_ani as fa
+
+    dev = torch.device("cuda", 0)
+    q = sketches[0]
+    bits = q.params.member_bits
+    w = bits // 32
+    b = torch.from_numpy(np.asarray(q.frag_buckets, np.int32)).to(dev)
+    o = torch.from_numpy(np.asarray(q.frag_offsets, np.int32)).to(dev)
+    n, f = b.numel(), o.numel() - 1
+    real = np.stack([s.member_bitmap_words() for s in sketches])
+    rmax = max(GROUPED_REFS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    stack = torch.zeros((rmax, w), dtype=torch.int32, device=dev)
+    stack[:len(real)] = torch.from_numpy(real.view(np.int32)).to(dev)
+    stack[len(real):] = _random_words(rmax - len(real), w, 0.25, gen, dev)
+    pc = torch.full((rmax,), bits / 4, dtype=torch.float32, device=dev)
+    pc[:len(real)] = torch.tensor([s.member_popcount for s in sketches],
+                                  dtype=torch.float32)
+    cfg = fa.FragmentAniConfig(k=q.params.k, member_bits=bits,
+                               min_fragment_hashes=q.params.min_fragment_hashes)
+    kw = dict(bits=bits, k=cfg.k, min_hashes=cfg.min_fragment_hashes,
+              min_ident=cfg.min_fragment_identity)
+    smi = nvidia_smi_line()
+    out = {}
+    for r in GROUPED_REFS:
+        rows = torch.arange(r, device=dev)
+        rpad = max(32, 1 << (r - 1).bit_length())
+        padded = torch.cat([stack[:r], stack.new_zeros((rpad - r, w))])
+        word = fa._forward_kernel(stack, rows, pc[:r], b, o, **kw)
+        table = fa._bit_transpose_table(padded)
+        bt = fa._forward_kernel_bt(table, pc[:r], b, o, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(word, bt)),
+              f"grouped verify at R={r}: word and bt differ")
+        word_ms = _time_ms(lambda: fa._forward_kernel(
+            stack, rows, pc[:r], b, o, **kw), 10)
+        bt_ms = _time_ms(lambda: fa._forward_kernel_bt(
+            table, pc[:r], b, o, **kw), 10)
+        table_ms = _time_ms(lambda: fa._bit_transpose_table(padded), 10)
+        fn_bytes = 4 * (n + f + 1 + r * w + r + 2 * r)
+        bound_ms, bound_by = _bound_ms(fn_bytes, r * n, INT_ALU_OPS_PER_S)
+        rec = {"refs": r, "stream_hashes": n, "fragments": f,
+               "word_ms": word_ms, "bt_ms": bt_ms, "bt_table_ms": table_ms,
+               "word_rows": r * n, "word_bytes": 4 * r * n,
+               "bt_rows": n, "bt_bytes": 4 * (rpad // 32) * n,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        for order, rate in PROBE_ROWS_PER_S.items():
+            rec[f"word_gather_ms_{order}"] = r * n / rate * 1e3
+            rec[f"bt_gather_ms_{order}"] = n / rate * 1e3
+        out[r] = rec
+        log("large", f"grouped verify R={r} on {n} hashes ({f} fragments): "
+                     f"word {word_ms:.4f} ms ({r * n} rows, {4 * r * n} "
+                     f"bytes gathered; {rec['word_gather_ms_ascending']:.4f} "
+                     f"/ {rec['word_gather_ms_random']:.4f} ms at the probe's "
+                     f"ascending / random row rate), bt {bt_ms:.4f} ms "
+                     f"({n} rows, {rec['bt_bytes']} bytes; "
+                     f"{rec['bt_gather_ms_ascending']:.4f} / "
+                     f"{rec['bt_gather_ms_random']:.4f} ms) + table "
+                     f"{table_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                     f"({bound_by}); bit-identical; {smi}")
+        del word, bt, table, padded
+    del stack
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_large_genomes(work: str) -> dict:
+    """`cluster` over LARGE_GENOMES families of LARGE_LENGTH genomes,
+    three times: GALAH_TPU_VERIFY_GATHER=word, =bt and unset (words).
+    Every fragment stream must exceed GROUPED_MIN_HASHES (checked first,
+    on the first run's device sketches), every verify must take the
+    grouped path, each run must find the families, and the three runs'
+    clusters.tsv, ANI and AF must be bit-identical; then the grouped
+    verify's times by width. Returns {"runs": {tag: counters},
+    "grouped": {R: numbers}}."""
+    import numpy as np
+
+    from galah_tpu_torch.utils.synth import make_families
+
+    nfam, nmem = LARGE_GENOMES
+    corpus = os.path.join(work, "large")
+    t0 = time.perf_counter()
+    paths, fam_ids = make_families(corpus, nfam, nmem,
+                                   genome_length=LARGE_LENGTH,
+                                   within_ani=0.98, seed=LARGE_SEED)
+    log("large", f"corpus {len(paths)} x {LARGE_LENGTH} bp made in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    runs, first = {}, None
+    for tag, env in (("word", {"GALAH_TPU_VERIFY_GATHER": "word"}),
+                     ("bt", {"GALAH_TPU_VERIFY_GATHER": "bt"}),
+                     ("unset", {})):
+        wall, m, clusters, rec, launches = _run_cli(
+            ["-d", corpus, "-x", "fna"], work, f"large_{tag}", "gpu",
+            env=env)
+        if first is None:
+            streams = [len(s.frag_buckets) for s in rec["device_sketches"]]
+            check(len(streams) == len(paths)
+                  and min(streams) > GROUPED_MIN_HASHES,
+                  f"streams of {sorted(streams)[:3]} hashes, want every one "
+                  f"of the {len(paths)} over {GROUPED_MIN_HASHES}")
+            log("large", f"smallest fragment stream {min(streams)} hashes "
+                         f"(largest {max(streams)}), all {len(streams)} over "
+                         f"{GROUPED_MIN_HASHES}")
+            sketches = rec["device_sketches"]
+        _log_run(f"large-{tag}", wall, m, launches, rec)
+        c = m["counters"]
+        check(c.get("verify_directed_grouped", 0) > 0
+              and not c.get("verify_directed_pairtable"),
+              f"large {tag}: grouped {c.get('verify_directed_grouped')}, "
+              f"pair table {c.get('verify_directed_pairtable')}")
+        routes = {k: int(c.get(f"verify_grouped_{k}_dispatches", 0))
+                  for k in ("word", "bt")}
+        # Unset, the card gathers words, as the CPU does.
+        off = {"word": "bt", "bt": "word", "unset": "bt"}[tag]
+        check(routes[off] == 0, f"large {tag}: dispatches {routes}")
+        n = _families_exact(clusters, paths, fam_ids)
+        check(n == nfam, f"large {tag}: {n} clusters")
+        verified = rec["verified"]
+        if first is None:
+            first = (clusters, verified)
+        else:
+            check(clusters == first[0],
+                  f"large {tag}: clusters.tsv differs from the word run's")
+            check(verified.keys() == first[1].keys() and all(
+                np.array(verified[k], np.float64).tobytes()
+                == np.array(first[1][k], np.float64).tobytes()
+                for k in verified),
+                f"large {tag}: ANI or AF differ from the word run's")
+        log("large", f"{tag} OK: {n} clusters, {len(verified)} pairs "
+                     f"verified, {int(c['verify_directed_grouped'])} directed "
+                     f"on the grouped path, dispatches {routes}; wall "
+                     f"{wall:.2f} s, verify {m['phases_s'].get('verify', 0)} s"
+                     f"; {nvidia_smi_line()}")
+        runs[tag] = {"wall_s": wall, "phases_s": m["phases_s"],
+                     "verify_directed_grouped": c["verify_directed_grouped"],
+                     "dispatches": routes}
+    log("large", "OK: ANI and AF bit-identical under word, bt and unset")
+    return {"runs": runs, "grouped": _grouped_verify_times(sketches)}
 
 
 def _rank_run(tag: str, fn) -> dict:
@@ -1748,23 +2065,35 @@ def main() -> int:
         contig_path, contig_names, contig_fams = make_contig_corpus(
             work, CONTIG_CORPUS, "contigs")
         k5 = phase_sketch_kernel(paths, contig_path)
-        main_launches, main_tsv = phase_main_path(work, corpus, paths,
-                                                  fam_ids)
-        k2_launches = phase_popcount_path(work, corpus, main_tsv)
-        ref_pairs = phase_reference(work, paths, fam_ids)
-        phase_low_memory(work, paths, fam_ids)
-        contig_launches, contig_tsv, contig_tiles, contig_pairs = (
-            phase_contig_path(work, contig_path, contig_names, contig_fams))
-        resume = phase_resume(work)
-        phase_surface(work, corpus, paths, fam_ids, main_tsv)
-        phase_scale()
-        phase_parity(work)
+        with _one_card():
+            main_launches, main_tsv, main_pairs = phase_main_path(
+                work, corpus, paths, fam_ids)
+            k2_launches = phase_popcount_path(work, corpus, main_tsv)
+            ref_pairs = phase_reference(work, paths, fam_ids)
+            phase_low_memory(work, paths, fam_ids)
+            indicator = phase_indicator(work, corpus, paths, fam_ids,
+                                        main_pairs, main_tsv, ref_pairs)
+            contig_launches, contig_tsv, contig_tiles, contig_pairs = (
+                phase_contig_path(work, contig_path, contig_names,
+                                  contig_fams))
+            resume = phase_resume(work)
+            phase_surface(work, corpus, paths, fam_ids, main_tsv)
+            phase_scale()
+            phase_parity(work)
         shards = phase_shards(work, contig_path, contig_names, contig_fams,
                               contig_pairs, contig_tsv, contig_tiles, paths,
                               fam_ids, ref_pairs)
         ranks = phase_processes(work, corpus, paths, fam_ids, main_tsv,
                                 contig_path, contig_names, contig_fams,
                                 contig_tsv, contig_tiles)["reports"]
+        with _one_card():
+            large = phase_large_genomes(work)
+    print(json.dumps({"device_programs": {
+        "indicator_product": indicator,
+        "grouped_verify": large["grouped"],
+        "large_genome_runs": large["runs"],
+        "card": info["nvidia_smi"],
+    }}))
     print(json.dumps({"kernels": [
         {
             "name": "packed_intersect_counts",

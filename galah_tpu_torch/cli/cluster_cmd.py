@@ -25,6 +25,7 @@ process the run takes the single-device path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import shutil
@@ -172,9 +173,54 @@ def run_cluster(args: argparse.Namespace,
                 device: Optional[torch.device] = None) -> None:
     """The `cluster` subcommand. device: where a native engine runs (a
     device or the shards); None resolves every local device
-    (utils/device.py) when one is built."""
+    (utils/device.py) when one is built. GALAH_TPU_PROFILE=<dir> traces
+    the run with torch.profiler and writes a Chrome trace into <dir>
+    after the outputs (_profiled)."""
     set_log_level(args)
     run_metrics = metrics.reset()
+    profile_dir = os.environ.get("GALAH_TPU_PROFILE")
+    if not profile_dir:
+        return _run_cluster(args, device, run_metrics)
+    with _profiled(profile_dir, device):
+        _run_cluster(args, device, run_metrics)
+
+
+def _on_card(device: Optional[torch.device]) -> bool:
+    """Whether the run's engine will be on a CUDA device: the given
+    device or shards, else what utils/device.py would resolve."""
+    if device is not None:
+        devices = [device] if isinstance(device, torch.device) else device
+        return any(d.type == "cuda" for d in devices)
+    platform = os.environ.get("GALAH_TPU_PLATFORM", "").strip().lower()
+    return platform != "cpu" and torch.cuda.is_available()
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str, device: Optional[torch.device]):
+    """torch.profiler over the body (the JAX package's
+    jax.profiler.start_trace/stop_trace): the CPU activity always, the
+    CUDA activity when the run is on the card. A body that finishes
+    writes <dir>/galah_tpu_torch.<pid>.trace.json; one that raises
+    stops the profiler and writes nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if _on_card(device):
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir,
+                        f"galah_tpu_torch.{os.getpid()}.trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("Wrote torch profiler trace to %s", path)
+
+
+def _run_cluster(args: argparse.Namespace, device, run_metrics) -> None:
     genome_fasta_files = parse_list_of_genome_fasta_files(args)
     cluster_contigs = args.cluster_contigs
     contig_names = None

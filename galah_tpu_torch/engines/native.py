@@ -13,9 +13,10 @@ so every unit is sketched once per run. `distances()`:
    fragment streams into the verify stream arena (GALAH_TPU_RESIDENT=0
    turns adoption off);
 2. screen all pairs at a conservative containment cutoff: the packed
-   triangle screen (ops/prefilter.py), resident or streaming, or the
+   triangle screen (ops/prefilter.py), resident or streaming, the
    popcount screen (ops/popcount_screen.py) under
-   GALAH_TPU_SCREEN=popcount;
+   GALAH_TPU_SCREEN=popcount, or the u8 indicator screen
+   (ops/prefilter.py::screen_triangle) under GALAH_TPU_SCREEN=indicator;
 3. verify the surviving pairs (ops/fragment_ani.py);
 4. return the pairs whose verified ANI and AF pass, as a sparse cache.
 
@@ -43,10 +44,9 @@ The resume artifacts are the JAX package's, in its file formats:
   the host;
 - the mid-sweep checkpoint (NativePreclusterer(sweep_checkpoint=),
   --sweep-checkpoint) of the resident packed triangle sweep, sequential
-  or pipelined (ops/sweep_checkpoint.py). The popcount screen, the
-  streaming (low-memory) sweep and the reference rectangle warn that
-  they do not checkpoint.
-The reference engine's u8 indicator screen raises "not yet supported".
+  or pipelined (ops/sweep_checkpoint.py). The popcount and indicator
+  screens, the streaming (low-memory) sweep and the reference rectangle
+  warn that they do not checkpoint.
 
 Over several shards (NativeContext given several devices) or several
 processes (parallel/mesh.py) the screens are the sharded sweeps of
@@ -85,7 +85,9 @@ from galah_tpu_torch.ops.prefilter import (
     IncrementalPackedScreen,
     ScreenResult,
     _device_resident_budget,
+    screen_rectangle,
     screen_rectangle_packed,
+    screen_triangle,
     screen_triangle_packed,
 )
 from galah_tpu_torch.parallel import distance
@@ -113,13 +115,11 @@ logger = logging.getLogger(__name__)
 # Distinct genomes per verify batch in low-memory mode: about the disk
 # sketch store's working set (max_resident=64), as in the reference.
 LOW_MEMORY_VERIFY_KEYS = 64
-# Device-born packed prefilter rows kept for the resident screen (the
-# reference's default budget); evicted rows come from the host sketches.
+# Bytes of device-born packed prefilter rows kept for the resident
+# screen, unless GALAH_TPU_PREF_CACHE_BYTES says otherwise (the
+# reference's default and variable); evicted rows come from the host
+# sketches.
 PREF_CACHE_BYTES = 512 << 20
-
-
-def not_supported(what: str) -> ValueError:
-    return ValueError(f"{what} is not yet supported by galah_tpu_torch")
 
 
 class _DictStore:
@@ -155,6 +155,20 @@ class _LazySketchList:
     def __iter__(self):
         for k in self._keys:
             yield self._store.get(k)
+
+
+class _LazyIndicatorRows:
+    """uint8 0/1 prefilter indicator rows, made on access (each is 8x
+    the packed row, so they are never all held)."""
+
+    def __init__(self, sketches) -> None:
+        self._sketches = sketches
+
+    def __len__(self) -> int:
+        return len(self._sketches)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self._sketches[i].prefilter_indicator()
 
 
 class _LazyPackedRows:
@@ -228,13 +242,13 @@ class _PrefRowCache:
 
 def _screen_backend() -> str:
     """The screen GALAH_TPU_SCREEN selects: "popcount" the popcount
-    screen; "indicator" (the reference's u8 indicator screen) is not
-    ported and raises; unset or any other value the packed screen, as
-    in the reference's fall-through."""
+    screen, "indicator" the u8 indicator screen; unset or any other
+    value the packed screen, as in the reference's fall-through. The
+    reference's CPU default is the indicator screen, a choice of speed
+    on its CPU backend: the port keeps the packed screen on every
+    device, with the same results."""
     env = os.environ.get("GALAH_TPU_SCREEN")
-    if env == "indicator":
-        raise not_supported("GALAH_TPU_SCREEN=indicator")
-    return "popcount" if env == "popcount" else "packed"
+    return env if env in ("popcount", "indicator") else "packed"
 
 
 def _shrink_bits(
@@ -431,7 +445,8 @@ class NativeContext:
         else:
             self._store = _DictStore()
         self._contig_store: Dict[str, List[NativeSketch]] = {}
-        self._pref_cache = _PrefRowCache(PREF_CACHE_BYTES)
+        self._pref_cache = _PrefRowCache(int(os.environ.get(
+            "GALAH_TPU_PREF_CACHE_BYTES", PREF_CACHE_BYTES)))
         self.frag_engine = FragmentAniEngine(
             FragmentAniConfig(
                 k=self.params.k,
@@ -922,9 +937,9 @@ class NativePreclusterer(PreclusterDistanceFinder):
         self, genome_fasta_paths: Sequence[str], reference_genomes: Sequence[str]
     ) -> SortedPairDistanceCache:
         """Cross-group comparisons only: each non-reference genome
-        against each reference, never within a group. Every screen
-        backend but the unported indicator one takes the packed
-        rectangle, as the reference does."""
+        against each reference, never within a group. The indicator
+        screen takes its rectangle (screen_rectangle), every other
+        backend the packed one, as the reference does."""
         ctx = self.ctx
         sketches = ctx.sketch_many(genome_fasta_paths)
         ref_set = set(reference_genomes)
@@ -934,7 +949,6 @@ class NativePreclusterer(PreclusterDistanceFinder):
         ]
         if not ref_idx or not query_idx:
             return SortedPairDistanceCache()
-        _screen_backend()  # raises for the unported indicator screen
         self._warn_checkpoint_unsupported("reference-genome rectangle")
         k = ctx.params.k
         bits = ctx.params.prefilter_bits
@@ -944,12 +958,17 @@ class NativePreclusterer(PreclusterDistanceFinder):
         logger.info("Screening %d genomes against %d references ..",
                     len(query_idx), len(ref_idx))
         rows = _LazyPackedRows(sketches, bits)
+        args = (k, min_cont, bits)
         if self._sharded() and not ctx.low_memory:
             logger.info("Reference-mode screening on %d shards of %d "
                         "processes (sharded rectangle sweep)",
                         len(ctx.devices), process_count())
             screen, opts = distance.sharded_screen_rectangle_packed, {
                 "devices": ctx.devices}
+        elif _screen_backend() == "indicator":
+            rows = _LazyIndicatorRows(sketches)
+            screen, args, opts = screen_rectangle, (k, min_cont), {
+                "device": ctx.device}
         else:
             screen, opts = screen_rectangle_packed, {
                 "device": ctx.device, "cache_blocks": not ctx.low_memory}
@@ -959,7 +978,7 @@ class NativePreclusterer(PreclusterDistanceFinder):
             np.asarray([sketches[i].n_prefilter for i in query_idx]),
             [rows[i] for i in ref_idx],
             np.asarray([sketches[i].n_prefilter for i in ref_idx]),
-            k, min_cont, bits, **opts,
+            *args, **opts,
         )
         if len(res.pairs) == 0:
             return SortedPairDistanceCache()
@@ -1014,6 +1033,7 @@ class NativePreclusterer(PreclusterDistanceFinder):
         )
         sizes = np.asarray([s.n_prefilter for s in sketches])
         names = [s.name for s in sketches] if self.sweep_checkpoint else None
+        rows, args = _LazyPackedRows(sketches, bits), (k, min_cont, bits)
         if self._sharded() and ctx.low_memory:
             # The row-sharded sweep holds about n / shards rows a shard,
             # fed lazily from the low-memory sketch store.
@@ -1033,6 +1053,11 @@ class NativePreclusterer(PreclusterDistanceFinder):
         elif _screen_backend() == "popcount":
             self._warn_checkpoint_unsupported("popcount")
             screen, opts = screen_triangle_popcount, {"device": ctx.device}
+        elif _screen_backend() == "indicator":
+            self._warn_checkpoint_unsupported("indicator")
+            screen, rows, args = (screen_triangle, _LazyIndicatorRows(sketches),
+                                  (k, min_cont))
+            opts = {"device": ctx.device, "cache_blocks": not ctx.low_memory}
         else:
             # The streaming (low-memory) sweep warns that it does not
             # checkpoint.
@@ -1045,10 +1070,8 @@ class NativePreclusterer(PreclusterDistanceFinder):
                 "checkpoint_path": self.sweep_checkpoint,
                 "unit_names": None if ctx.low_memory else names,
             }
-        res = self._timed_screen(
-            n * (n - 1) // 2, screen, _LazyPackedRows(sketches, bits), sizes,
-            k, min_cont, bits, **opts,
-        )
+        res = self._timed_screen(n * (n - 1) // 2, screen, rows, sizes,
+                                 *args, **opts)
         if len(res.pairs) == 0:
             return SortedPairDistanceCache()
         cache = self._verify_pairs(sketches, res.pairs)

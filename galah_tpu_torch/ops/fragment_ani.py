@@ -10,8 +10,14 @@ aligned fragments and its AF the aligned share of usable fragments.
 Two kernels, both plain torch on the device:
 - the pair-table kernel (ops/pair_table.py) for pairs whose streams both
   fit its budget: many directed pairs per batch;
-- the grouped kernel (_forward_kernel): one query stream against many
-  reference bitmaps, for pairs with a stream over the budget.
+- the grouped kernel: one query stream against many reference bitmaps,
+  for pairs with a stream over the budget. It tests each stream bucket
+  either with one bitmap word gathered per (reference, position)
+  (_forward_kernel) or with one row of a bucket-major bit-transposed
+  table gathered per position, which holds every reference's bit
+  (_forward_kernel_bt over _bit_transpose_table); GALAH_TPU_VERIFY_GATHER=bt
+  picks the second, words are the default (_verify_gather_mode), and the
+  results are bit-identical.
 Routing is per undirected pair, so a pair's two directions never mix the
 two kernels' numerics (fixed-point vs float32 identity sums);
 GALAH_TPU_VERIFY=pairtable|grouped forces one kernel for every pair.
@@ -34,6 +40,7 @@ computes every pair in every process instead).
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -70,12 +77,39 @@ class FragmentAniConfig:
     max_cached_bitmaps: int = 512
 
 
-def refs_per_dispatch(n: int, cap: int) -> int:
-    """Grouped-kernel width for an n-hash stream: the cap, chunked down
-    by a 256M-element budget on the (R, N) intermediates, floored at 8
-    and rounded down to a power of two."""
-    r_chunk = max(8, min(cap, (256 << 20) // max(1, n)))
+# Streams are counted padded to this many hashes when the grouped
+# kernel's width is chosen (the reference's padded stream length).
+_STREAM_PAD = 1 << 14
+
+# The (R, N) intermediates' budget of one grouped dispatch, in elements.
+_GROUPED_BUDGET = 256 << 20
+
+
+def refs_per_dispatch(npad: int, cap: int) -> int:
+    """Grouped-kernel width for a stream padded to npad hashes: the
+    cap, chunked down by the budget on the (R, N) intermediates, floored
+    at 8 and rounded down to a power of two."""
+    r_chunk = max(8, min(cap, _GROUPED_BUDGET // max(1, npad)))
     return 1 << (r_chunk.bit_length() - 1)
+
+
+def _round_up(x: int, m: int) -> int:
+    return max(m, ((x + m - 1) // m) * m)
+
+
+def _verify_gather_mode() -> str:
+    """How the grouped kernel tests stream buckets against reference
+    bitmaps (the reference's GALAH_TPU_VERIFY_GATHER): "bt" when the
+    variable says so, one row of the bit-transposed table gathered per
+    position; else "word", one bitmap word per (reference, position),
+    on every device. The reference's "auto" takes bt for narrow
+    dispatches on an accelerator; here it is "word": on the H100
+    (chip_smoke.py phase 16) bt's kernel beat word's only at 32
+    references, by about 0.5 ms, and lost at 64 and 128, before the
+    0.35-1.36 ms its table takes each dispatch. Results are
+    bit-identical in both modes."""
+    return "bt" if os.environ.get("GALAH_TPU_VERIFY_GATHER") == "bt" \
+        else "word"
 
 
 def _ani_af_from_counts(m, M, popcount, bits, k, min_hashes, min_ident):
@@ -132,6 +166,65 @@ def _forward_kernel(
     word_idx = rows[:, None] * W + (buckets >> 5).long()[None, :]
     words = bitmaps.reshape(-1)[word_idx]                 # (R, N)
     bits_hit = (words >> (buckets & 31)[None, :]) & 1
+    m = _per_fragment_hits(bits_hit, offsets)
+    return _ani_af_from_counts(
+        m, M[None, :], popcounts, float(bits), k, min_hashes, min_ident
+    )
+
+
+def _bit_transpose_table(bitmaps: torch.Tensor) -> torch.Tensor:
+    """(R, W) int32 bitmap rows (R a multiple of 32) -> the bucket-major
+    bit table T, (32 W, R // 32) int32, with
+
+        (T[b, g] >> r) & 1 == (bitmaps[32 g + r, b >> 5] >> (b & 31)) & 1
+
+    so row b holds every reference's bit of bucket b (the reference's
+    _bit_transpose_table). A butterfly 32 x 32 bit transpose of each
+    group of 32 rows, vectorised over words and groups: 5 passes of
+    mask, shift and xor. Right shifts of int32 are arithmetic, so each
+    is masked: every pass's mask has zeros in its top j bits, where the
+    sign bits would land."""
+    r, w = bitmaps.shape
+    if r % 32:
+        raise ValueError(f"bit transpose of {r} rows, not a multiple of 32")
+    blk = bitmaps.reshape(r // 32, 32, w)
+    j, m = 16, 0x0000FFFF
+    while j:
+        xr = blk.reshape(r // 32, -1, 2, j, w)
+        upper, lower = xr[:, :, 0], xr[:, :, 1]
+        t = ((upper >> j) ^ lower) & m
+        blk = torch.stack([upper ^ (t << j), lower ^ t], dim=2).reshape(
+            r // 32, 32, w)
+        j >>= 1
+        m ^= (m << j) & 0xFFFFFFFF
+    # T[32 w + s, g] = blk[g, s, w]; the last mask is 0x55555555, and
+    # every mask fits an int32.
+    return blk.permute(2, 1, 0).reshape(w * 32, r // 32).contiguous()
+
+
+def _forward_kernel_bt(
+    table: torch.Tensor,      # (bits, G) int32 bit-transposed table
+    popcounts: torch.Tensor,  # (R,) float32, R <= 32 G
+    buckets: torch.Tensor,    # (N,) int32 query fragment buckets
+    offsets: torch.Tensor,    # (F+1,) int32 fragment offsets
+    bits: int,
+    k: int,
+    min_hashes: int,
+    min_ident: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query's fragments against the first R references of a
+    bit-transposed table (the reference's _forward_kernel_bt): one
+    G-word row gathered per stream position gives every reference's
+    bit. The padding references past R are cut before the per-fragment
+    counts, so the rest runs on the same (R, F) shapes as
+    _forward_kernel and gives the same bits. Returns (ani_pct (R,),
+    af (R,))."""
+    r = popcounts.shape[0]
+    M = offsets[1:] - offsets[:-1]
+    rows = table.index_select(0, buckets)                 # (N, G)
+    shifts = torch.arange(32, dtype=torch.int32, device=table.device)
+    bits_hit = ((rows.t()[:, None, :] >> shifts[None, :, None]) & 1).reshape(
+        -1, rows.shape[0])[:r]                            # (R, N)
     m = _per_fragment_hits(bits_hit, offsets)
     return _ani_af_from_counts(
         m, M[None, :], popcounts, float(bits), k, min_hashes, min_ident
@@ -520,6 +613,12 @@ def verify_devices(devices: Sequence[torch.device]) -> List[torch.device]:
     return devices
 
 
+def _verify_shards(shards: List["_VerifyShard"],
+                   devices: Sequence[torch.device]) -> List["_VerifyShard"]:
+    """The first of `shards` that verify work goes to (verify_devices)."""
+    return shards[:len(verify_devices(devices))]
+
+
 class _VerifyShard:
     """One verify shard: its device, and its bitmap pool and stream
     arena, each allocated on first use (`used` says whether work ever
@@ -578,7 +677,11 @@ class FragmentAniEngine:
                 min_fragment_identity=cfg.min_fragment_identity,
                 max_bitmaps=max(64, min(1024, (256 << 20) // bitmap_bytes)),
             ),
-            self.verify_shards,
+            # Not the bound verify_shards: the pair table would hold the
+            # engine that holds it, a reference cycle that keeps every
+            # shard's pool and 2 GiB arena after the run until the cyclic
+            # collector runs.
+            functools.partial(_verify_shards, self.shards, self.devices),
         )
 
     @property
@@ -588,7 +691,7 @@ class FragmentAniEngine:
 
     def verify_shards(self) -> List[_VerifyShard]:
         """The shards verify work goes to (verify_devices)."""
-        return self.shards[:len(verify_devices(self.devices))]
+        return _verify_shards(self.shards, self.devices)
 
     def stream_arena(self) -> StreamArena:
         """The main shard's stream arena, allocated on first use."""
@@ -623,6 +726,24 @@ class FragmentAniEngine:
         st = sketch_tensors(sk, sh.device)
         return st.frag_buckets, st.frag_offsets
 
+    def _ref_table(self, keys: List, refs: Sequence[NativeSketch],
+                   rpad: int, shard: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bit-transposed table of one reference group on a shard,
+        its rows padded with zero bitmaps to rpad, and the group's
+        popcounts. Built for each dispatch, uncached: the reference
+        caches tables by group, but a verify sends each source against
+        its own target list, so a group recurs only where two sources
+        have the same targets."""
+        sh = self.shards[shard]
+        sh.pool.ensure(keys, list(refs))
+        rows, pc = sh.pool.rows(keys)
+        stack = sh.pool.buffer.index_select(0, to_device(rows, sh.device))
+        table = _bit_transpose_table(
+            torch.cat([stack, stack.new_zeros((rpad - len(keys),
+                                               stack.shape[1]))]))
+        return table, to_device(pc, sh.device)
+
     def one_to_many_issue(
         self,
         query: NativeSketch,
@@ -634,30 +755,45 @@ class FragmentAniEngine:
         """Queue the grouped kernel for `query`'s fragments against each
         ref's bitmap on one shard, without reading anything back (the
         reference's one_to_many_async). Returns (ani_pct (R,), af (R,))
-        on the shard's device."""
+        on the shard's device.
+
+        References go in chunks of refs_per_dispatch of the query's
+        padded stream length, capped at GALAH_TPU_VERIFY_REFS when set,
+        else at max_refs_per_dispatch. A chunk gathers from the
+        bit-transposed table (its references padded to a power of two,
+        32 at least) when the gather mode says so and the padded
+        (references, stream) intermediates fit the budget, else
+        bitmap words."""
         cfg = self.cfg
         sh = self.shards[shard]
         dev = sh.device
         pool = sh.pool
         buckets, offsets = self._query_arrays(query_key, query, shard)
-        r_chunk = refs_per_dispatch(len(query.frag_buckets),
-                                    cfg.max_refs_per_dispatch)
+        npad = _round_up(len(query.frag_buckets), _STREAM_PAD)
+        r_cap = (int(os.environ.get("GALAH_TPU_VERIFY_REFS", 0))
+                 or cfg.max_refs_per_dispatch)
+        r_chunk = refs_per_dispatch(npad, r_cap)
+        mode = _verify_gather_mode()
+        kw = dict(bits=cfg.member_bits, k=cfg.k,
+                  min_hashes=cfg.min_fragment_hashes,
+                  min_ident=cfg.min_fragment_identity)
         anis, afs = [], []
         for lo in range(0, len(refs), r_chunk):
             keys = list(ref_keys[lo : lo + r_chunk])
-            pool.ensure(keys, list(refs[lo : lo + r_chunk]))
-            rows, pc = pool.rows(keys)
-            ani, af = _forward_kernel(
-                pool.buffer,
-                to_device(rows, dev),
-                to_device(pc, dev),
-                buckets,
-                offsets,
-                bits=cfg.member_bits,
-                k=cfg.k,
-                min_hashes=cfg.min_fragment_hashes,
-                min_ident=cfg.min_fragment_identity,
-            )
+            chunk = list(refs[lo : lo + r_chunk])
+            rpad_bt = max(32, 1 << (len(keys) - 1).bit_length())
+            if mode == "bt" and rpad_bt * npad <= _GROUPED_BUDGET:
+                table, pc = self._ref_table(keys, chunk, rpad_bt, shard)
+                ani, af = _forward_kernel_bt(table, pc, buckets, offsets,
+                                             **kw)
+                metrics.current().count("verify_grouped_bt_dispatches", 1)
+            else:
+                pool.ensure(keys, chunk)
+                rows, pc = pool.rows(keys)
+                ani, af = _forward_kernel(
+                    pool.buffer, to_device(rows, dev), to_device(pc, dev),
+                    buckets, offsets, **kw)
+                metrics.current().count("verify_grouped_word_dispatches", 1)
             anis.append(ani)
             afs.append(af)
         if not anis:

@@ -29,6 +29,17 @@ past `cap` hits; a streaming tile also when its hits span more than
 `_row_sel(rows)` rows, because the reference has no resident matrix to
 re-extract such a tile from.
 
+The u8 indicator screens (screen_triangle, screen_rectangle; the
+engine's GALAH_TPU_SCREEN=indicator) sweep uint8 0/1 rows through the
+same queue, their counts one matrix product a tile in the
+GALAH_TPU_SCREEN_DTYPE dtype (_screen_matmul), under the streaming
+overflow rule, which the reference's indicator sweep always applies.
+Every dtype's counts are exact, so none changes a pair or an ANI value.
+The packed screens' counts are K1's whatever GALAH_TPU_SCREEN_DTYPE
+says. The packed screens' tile edge is the caller's, else
+GALAH_TPU_SCREEN_BLOCK, else DEFAULT_BLOCK (_screen_block); the
+indicator screens', as the reference's, the caller's or DEFAULT_BLOCK.
+
 Pairs come out tile by tile in the order tiles were issued, row-major
 within a tile: the reference's sweep order for a sweep, the order in
 which tiles became ready for a screen fed row by row.
@@ -65,6 +76,18 @@ DEFAULT_BLOCK = 1024
 # the intersection counts are K1's, exact int32 (the JAX package records
 # its matmul input dtype there).
 SCREEN_ROUTE = "torch-k1-int32"
+
+# GALAH_TPU_SCREEN_DTYPE's values (the JAX package's): the dtype of the
+# indicator screens' 0/1 product ("int8x", the reference's int8 without
+# its fused kernel, is int8 here). Counts are exact in every dtype, so
+# pairs and ANI do not depend on it. The packed screens always count
+# with K1.
+SCREEN_DTYPES = {
+    "int8": torch.int8,
+    "int8x": torch.int8,
+    "bf16": torch.bfloat16,
+    "f32": torch.float32,
+}
 
 # Hit-row capacity of the reference's two-level sparse extraction
 # (galah_tpu/ops/prefilter.py ROW_SEL): a streaming tile whose hits span
@@ -129,6 +152,77 @@ def _pipeline_window() -> int:
     leaving them all to finish()."""
     env = os.environ.get("GALAH_TPU_PIPELINE_WINDOW")
     return max(1, int(env)) if env else 2
+
+
+def _screen_block() -> int:
+    """Tile edge of the packed screens when the caller gives none:
+    GALAH_TPU_SCREEN_BLOCK, else DEFAULT_BLOCK on every device (the JAX
+    package's edge model is priced in TPU tile rates)."""
+    env = os.environ.get("GALAH_TPU_SCREEN_BLOCK")
+    return int(env) if env else DEFAULT_BLOCK
+
+
+def _screen_dtype_name(device: torch.device) -> str:
+    """The product dtype GALAH_TPU_SCREEN_DTYPE names, else "int8" on a
+    card and "f32" on the CPU (the JAX package's defaults); resolved
+    once a sweep."""
+    mode = os.environ.get("GALAH_TPU_SCREEN_DTYPE")
+    if mode in SCREEN_DTYPES:
+        return mode
+    return "int8" if device.type == "cuda" else "f32"
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x with zero rows appended up to `rows` rows (x itself when it has
+    as many)."""
+    if x.shape[0] >= rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0], x.shape[1]))])
+
+
+def _int_mm_rows(m: int) -> int:
+    """Rows torch._int_mm takes for m rows on a card: more than 16, and
+    (for its column operand) a multiple of 8."""
+    return max(24, -(-m // 8) * 8)
+
+
+def _screen_matmul(xu: torch.Tensor, yu: torch.Tensor) -> torch.Tensor:
+    """(m, n) float32 intersection counts of two blocks of 0/1 rows,
+    (m, K) and (n, K), in their dtype (the JAX package's _screen_matmul):
+    int8 through torch._int_mm (int32 sums), bfloat16 and float32 as
+    float32 sums. Every count is exact: below 2^31 in int32, below 2^24
+    in float32 (K is at most 2^18). On a card _int_mm wants more than 16
+    rows and column counts in multiples of 8, so both operands are
+    padded with zero rows, which count 0, and the product cut back; a
+    bfloat16 product there keeps its float32 sums (out_dtype), since a
+    bfloat16 result would round every count above 256."""
+    m, n = xu.shape[0], yu.shape[0]
+    if xu.dtype == torch.int8:
+        if xu.device.type == "cuda":
+            counts = torch._int_mm(_pad_rows(xu, _int_mm_rows(m)),
+                                   _pad_rows(yu, _int_mm_rows(n)).t())
+            counts = counts[:m, :n]
+        else:
+            counts = torch._int_mm(xu, yu.t())
+        return counts.to(torch.float32)
+    if xu.dtype == torch.bfloat16:
+        if xu.device.type == "cuda":
+            return torch.mm(xu, yu.t(), out_dtype=torch.float32)
+        xu, yu = xu.to(torch.float32), yu.to(torch.float32)
+    return xu @ yu.t()
+
+
+def _indicator_counts(dtname: str) -> Callable[..., torch.Tensor]:
+    """The counts of two blocks of uint8 0/1 indicator rows in the
+    dtype dtname names (int8 reinterprets the bytes, no copy)."""
+    dt = SCREEN_DTYPES[dtname]
+
+    def counts(si: torch.Tensor, sj: torch.Tensor) -> torch.Tensor:
+        if dt == torch.int8:
+            return _screen_matmul(si.view(torch.int8), sj.view(torch.int8))
+        return _screen_matmul(si.to(dt), sj.to(dt))
+
+    return counts
 
 
 def _containment(
@@ -220,7 +314,9 @@ class _TileQueue:
 
     def __init__(self, bits: int, min_containment: float, block: int,
                  k: int, *, streaming: bool, cap: int = 0,
-                 shard: Optional[int] = None) -> None:
+                 shard: Optional[int] = None,
+                 counts: Optional[Callable[..., torch.Tensor]] = None
+                 ) -> None:
         self.block = block
         self.bits_f = float(bits)
         self.min_cont_f = float(np.float32(min_containment))
@@ -230,6 +326,12 @@ class _TileQueue:
         # The shard whose tiles this queue issues (parallel/distance.py),
         # passed to K1's wrapper for its per-shard launch count.
         self.shard = shard
+        # (row block, column block) -> float32 counts: the indicator
+        # screens' product; None for K1's. (A default closing over self
+        # would make the queue a reference cycle, and the engine it
+        # reports to would outlive the run until the cyclic collector
+        # ran.)
+        self._counts = counts
         self.window = TILE_WINDOW
         self.pairs: List[np.ndarray] = []
         self.anis: List[np.ndarray] = []
@@ -261,8 +363,9 @@ class _TileQueue:
               aj: torch.Tensor, *, diag: bool, row0: int, col0: int) -> None:
         """Queue one tile (row block si with sizes ai against column
         block sj with sizes aj) and drain tiles past the window."""
-        counts = packed_intersect_counts(si, sj, shard=self.shard).to(
-            torch.float32)
+        counts = (self._counts(si, sj) if self._counts else
+                  packed_intersect_counts(si, sj, shard=self.shard).to(
+                      torch.float32))
         cont = _containment(counts, ai, aj, self.bits_f)
         mask = cont >= self.min_cont_f
         if diag:
@@ -388,7 +491,7 @@ class IncrementalPackedScreen:
         if n <= 0:
             raise ValueError("IncrementalPackedScreen needs n >= 1")
         self.n = n
-        self.block = block or DEFAULT_BLOCK
+        self.block = block or _screen_block()
         self.device = device
         self.w = row_width or bits // 32
         self.nblocks = -(-n // self.block)
@@ -678,7 +781,7 @@ def screen_triangle_packed(
     n = len(packed)
     if n == 0:
         return _empty_result()
-    block = block or DEFAULT_BLOCK
+    block = block or _screen_block()
     sizes_f = np.asarray(sizes).astype(np.float32)
     w = _row_width(packed)
     if cache_blocks and n * w * 4 <= _device_resident_budget(device):
@@ -727,7 +830,7 @@ def screen_rectangle_packed(
     nq, nr = len(query_packed), len(ref_packed)
     if nq == 0 or nr == 0:
         return _empty_result()
-    block = block or DEFAULT_BLOCK
+    block = block or _screen_block()
     qs = np.asarray(query_sizes).astype(np.float32)
     rs = np.asarray(ref_sizes).astype(np.float32)
     w = _row_width(query_packed)
@@ -747,5 +850,104 @@ def screen_rectangle_packed(
     else:
         rows = _streamer(query_packed, qs, block, device)
         cols = _streamer(ref_packed, rs, block, device)
+    return _sweep(rows, cols, nq, nr, triangle=False, queue=queue,
+                  block=block)
+
+
+def _indicator_streamer(
+    rows: Sequence[np.ndarray], sizes_f: np.ndarray, block: int,
+    device: torch.device,
+) -> Callable[[int], Block]:
+    """Block b of uint8 indicator rows (and its sizes), uploaded."""
+    n = len(rows)
+
+    def make(b: int) -> Block:
+        lo, hi = b * block, min(n, (b + 1) * block)
+        mat = np.stack([np.asarray(rows[t], np.uint8) for t in range(lo, hi)])
+        return to_device(mat, device), to_device(sizes_f[lo:hi], device)
+
+    return make
+
+
+def screen_triangle(
+    indicators: Sequence[np.ndarray],
+    sizes: np.ndarray,
+    k: int,
+    min_containment: float,
+    device: torch.device,
+    block: int = 0,
+    cache_blocks: bool = True,
+) -> ScreenResult:
+    """Upper-triangle screen over uint8 0/1 indicator rows (the JAX
+    package's screen_triangle, GALAH_TPU_SCREEN=indicator).
+
+    indicators: n rows of (bits,) uint8, any sequence (rows are read by
+    index, a block at a time). Each tile's counts are the 0/1 product in
+    the GALAH_TPU_SCREEN_DTYPE dtype (_screen_matmul); the rest of the
+    tile is the packed screens' issue and drain (_TileQueue) under the
+    reference's streaming overflow rule, which its indicator sweep
+    always applies. Blocks stay cached on the device unless cache_blocks
+    is False (low-memory mode) or the n * bits bytes exceed the device
+    budget; then they stream and one tile at most waits in flight (a
+    deeper window would pin as many streamed blocks). The tile edge is
+    the caller's, else DEFAULT_BLOCK: like the reference's indicator
+    screens, these do not read GALAH_TPU_SCREEN_BLOCK. The sweep does not
+    checkpoint."""
+    n = len(indicators)
+    if n == 0:
+        return _empty_result()
+    bits = len(indicators[0])
+    block = block or DEFAULT_BLOCK
+    sizes_f = np.asarray(sizes).astype(np.float32)
+    if cache_blocks and n * bits > _device_resident_budget(device):
+        logger.info("Indicator matrix (%d x %d) exceeds the device budget; "
+                    "streaming column blocks", n, bits)
+        cache_blocks = False
+    queue = _TileQueue(bits, min_containment, block, k, streaming=True,
+                       counts=_indicator_counts(_screen_dtype_name(device)))
+    make = _indicator_streamer(indicators, sizes_f, block, device)
+    if cache_blocks:
+        cached: Dict[int, Block] = {}
+
+        def get(b: int) -> Block:
+            if b not in cached:
+                cached[b] = make(b)
+            return cached[b]
+    else:
+        queue.window = 1
+        get = make
+    return _sweep(get, get, n, n, triangle=True, queue=queue, block=block)
+
+
+def screen_rectangle(
+    query_indicators: Sequence[np.ndarray],
+    query_sizes: np.ndarray,
+    ref_indicators: Sequence[np.ndarray],
+    ref_sizes: np.ndarray,
+    k: int,
+    min_containment: float,
+    device: torch.device,
+    block: int = 0,
+) -> ScreenResult:
+    """Cross-group screen over uint8 indicator rows (reference-genome
+    mode under GALAH_TPU_SCREEN=indicator; the JAX package's
+    screen_rectangle): every (query block, reference block) tile, the
+    query block uploaded once per row of tiles and the reference block
+    once per tile, with one tile at most in flight; the tile edge as in
+    screen_triangle. Returns (query_idx, ref_idx) pairs."""
+    nq, nr = len(query_indicators), len(ref_indicators)
+    if nq == 0 or nr == 0:
+        return _empty_result()
+    bits = len(query_indicators[0])
+    block = block or DEFAULT_BLOCK
+    queue = _TileQueue(bits, min_containment, block, k, streaming=True,
+                       counts=_indicator_counts(_screen_dtype_name(device)))
+    queue.window = 1
+    rows = _indicator_streamer(
+        query_indicators, np.asarray(query_sizes).astype(np.float32), block,
+        device)
+    cols = _indicator_streamer(
+        ref_indicators, np.asarray(ref_sizes).astype(np.float32), block,
+        device)
     return _sweep(rows, cols, nq, nr, triangle=False, queue=queue,
                   block=block)

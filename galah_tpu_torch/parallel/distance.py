@@ -48,7 +48,6 @@ import numpy as np
 import torch
 
 from galah_tpu_torch.ops.prefilter import (
-    DEFAULT_BLOCK,
     SCREEN_ROUTE,
     ScreenResult,
     _TileQueue,
@@ -56,6 +55,7 @@ from galah_tpu_torch.ops.prefilter import (
     _empty_result,
     _host_block,
     _row_width,
+    _screen_block,
     _screen_cap_for,
 )
 from galah_tpu_torch.parallel.mesh import (
@@ -187,7 +187,7 @@ def sharded_screen_triangle_packed(
     if n == 0:
         return _empty_result()
     w = _row_width(packed)
-    block = _pick_block(n, block or DEFAULT_BLOCK)
+    block = _pick_block(n, block or _screen_block())
     cap = cap or _screen_cap_for(block)
     nblocks = -(-n // block)
     if _rowshard_forced(nblocks * block, w, devices):
@@ -276,7 +276,7 @@ def sharded_screen_rectangle_packed(
     if nq == 0 or nr == 0:
         return _empty_result()
     w = _row_width(query_packed)
-    block = _pick_block(max(nq, nr), block or DEFAULT_BLOCK)
+    block = _pick_block(max(nq, nr), block or _screen_block())
     cap = cap or _screen_cap_for(block)
     nqb, nrb = -(-nq // block), -(-nr // block)
     if _rowshard_forced((nqb + nrb) * block, w, devices):

@@ -163,11 +163,21 @@ def test_reference_flags_are_exclusive_and_refuse_contigs(
 
 
 def test_indicator_screen_is_refused(corpus, tmp_path, monkeypatch, capsys):
-    d, _, _ = corpus
-    monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
+    """The u8 indicator screen, which earlier slices of the port
+    refused, now runs under GALAH_TPU_SCREEN=indicator and gives the JAX
+    CLI's clusters.tsv (tests/test_torch_indicator.py holds its other
+    modes and dtypes)."""
+    d, paths, fams = corpus
     monkeypatch.setenv("GALAH_TPU_SCREEN", "indicator")
-    assert torch_main(_cluster_argv(d, tmp_path / "x.tsv")) == 1
-    assert "not yet supported by galah_tpu_torch" in capsys.readouterr().err
+    monkeypatch.setenv("GALAH_TPU_VERIFY_DEVICES", "1")
+    monkeypatch.delenv("GALAH_TPU_PLATFORM", raising=False)
+    assert jax_main(_cluster_argv(d, tmp_path / "jax.tsv")) == 0
+    monkeypatch.setenv("GALAH_TPU_PLATFORM", "cpu")
+    assert torch_main(_cluster_argv(d, tmp_path / "x.tsv")) == 0
+    assert "not yet supported" not in capsys.readouterr().err
+    got = (tmp_path / "x.tsv").read_text()
+    assert got == (tmp_path / "jax.tsv").read_text()
+    assert len(_families(got, paths, fams)) == 4
 
 
 @pytest.mark.parametrize("device_sketch", ["1", "0"])

@@ -822,3 +822,120 @@ def test_sharded_triangle_two_shards_on_one_card(cuda_device, monkeypatch,
 def _lexsorted(res):
     o = np.lexsort((res.pairs[:, 1], res.pairs[:, 0]))
     return type(res)(res.pairs[o], res.ani_est[o])
+
+
+# ------------------------------------------- indicator screen and dtypes
+
+
+def _exact_counts(x, y):
+    """Intersection counts of two uint8 0/1 blocks on the card, int64."""
+    return x.to(torch.float64) @ y.to(torch.float64).t()
+
+
+@pytest.mark.parametrize("m,n,bits", [
+    (1024, 672, 1 << 15),   # the contig path's edge tile
+    (896, 128, 1 << 17),    # the reference-mode tile
+    (5, 1024, 1 << 18),     # a last row block of 5 rows
+    (1024, 5, 1 << 18),     # and as the column block
+])
+def test_int8_product_pads_for_int_mm(cuda_device, m, n, bits):
+    """The int8 route (torch._int_mm on the bytes as int8) at shapes
+    _int_mm refuses unpadded: exact counts, cut back to (m, n)."""
+    from galah_tpu_torch.ops.prefilter import _indicator_counts
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m + n)
+    x = (torch.rand((m, bits), generator=gen, device=cuda_device)
+         < 0.05).to(torch.uint8)
+    y = (torch.rand((n, bits), generator=gen, device=cuda_device)
+         < 0.05).to(torch.uint8)
+    y[0] = x[0]
+    got = _indicator_counts("int8")(x, y)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert torch.equal(got.to(torch.float64), _exact_counts(x, y))
+
+
+def test_bf16_product_counts_are_exact(cuda_device):
+    """The bfloat16 route keeps float32 sums: counts above 2^8 and 2^16
+    (up to 2^18, a full row) come out exact."""
+    from galah_tpu_torch.ops.prefilter import _indicator_counts
+
+    bits = 1 << 18
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    x = (torch.rand((64, bits), generator=gen, device=cuda_device)
+         < 0.6).to(torch.uint8)
+    x[0] = 1
+    x[1, :300] = 1
+    x[1, 300:] = 0
+    want = _exact_counts(x, x[:16])
+    assert want.max() == bits and want[1, 1] == 300
+    assert (want > 1 << 16).sum() > 900
+    for dtype in ("bf16", "f32", "int8x"):
+        got = _indicator_counts(dtype)(x, x[:16])
+        assert torch.equal(got.to(torch.float64), want), dtype
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32"])
+def test_indicator_screens_on_card_match_cpu(cuda_device, monkeypatch, dtype):
+    """screen_triangle (cached and streamed) and screen_rectangle on the
+    card give the CPU's pairs and ANI bit for bit, in order, under each
+    dtype."""
+    from galah_tpu_torch.ops.prefilter import screen_rectangle, screen_triangle
+
+    monkeypatch.setenv("GALAH_TPU_SCREEN_DTYPE", dtype)
+    ind, _ = _near_duplicate_rows(8, 700, 200)
+    ind = ind.astype(np.uint8)
+    rows, sizes = list(ind), ind.sum(axis=1)
+    for cache in (True, False):
+        got = screen_triangle(rows, sizes, 15, 0.69, cuda_device, block=256,
+                              cache_blocks=cache)
+        want = screen_triangle(rows, sizes, 15, 0.69, CPU, block=256,
+                               cache_blocks=cache)
+        np.testing.assert_array_equal(got.pairs, want.pairs)
+        np.testing.assert_array_equal(got.ani_est.view(np.int32),
+                                      want.ani_est.view(np.int32))
+    got = screen_rectangle(rows[:500], sizes[:500], rows[100:300],
+                           sizes[100:300], 15, 0.69, cuda_device, block=256)
+    want = screen_rectangle(rows[:500], sizes[:500], rows[100:300],
+                            sizes[100:300], 15, 0.69, CPU, block=256)
+    np.testing.assert_array_equal(got.pairs, want.pairs)
+    np.testing.assert_array_equal(got.ani_est.view(np.int32),
+                                  want.ani_est.view(np.int32))
+    assert len(want.pairs) > 1000
+
+
+def test_bt_matches_word_on_a_large_stream(cuda_device):
+    """The grouped verify's two gathers on a 1.25M-hash stream (sorted
+    buckets within 3,000 fragments) against 32 references of 2^22 bits,
+    the first 16 holding 90% of the stream's buckets: bit-identical ANI
+    and AF."""
+    from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.utils.convert import words_to_torch
+
+    bits, r, n, frags = 1 << 22, 32, 1_250_000, 3_000
+    rng = np.random.default_rng(8)
+    offsets = np.linspace(0, n, frags + 1).round().astype(np.int32)
+    buckets = rng.integers(0, bits, n).astype(np.int32)
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        buckets[lo:hi].sort()
+    bm = (rng.integers(0, 1 << 32, (r, bits // 32), dtype=np.uint32)
+          & rng.integers(0, 1 << 32, (r, bits // 32), dtype=np.uint32))
+    for i in range(16):
+        sel = buckets[rng.random(n) < 0.9]
+        np.bitwise_or.at(bm[i], sel >> 5,
+                         np.uint32(1) << (sel & 31).astype(np.uint32))
+    bitmaps = words_to_torch(bm).to(cuda_device)
+    popc = torch.from_numpy(np.unpackbits(bm.view(np.uint8), axis=1).sum(
+        axis=1).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(buckets).to(cuda_device)
+    o = torch.from_numpy(offsets).to(cuda_device)
+    kw = dict(bits=bits, k=15, min_hashes=8,
+              min_ident=fa.FragmentAniConfig().min_fragment_identity)
+    word = fa._forward_kernel(bitmaps, torch.arange(r, device=cuda_device),
+                              popc, b, o, **kw)
+    bt = fa._forward_kernel_bt(fa._bit_transpose_table(bitmaps), popc, b, o,
+                               **kw)
+    for w, t in zip(word, bt):
+        assert torch.equal(w, t)
+    assert (word[1][:16] > 0.9).all() and (word[1][16:] < 0.2).all()

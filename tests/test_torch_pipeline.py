@@ -363,3 +363,37 @@ def test_pipeline_enabled_follows_the_reference_rule(monkeypatch, env, want):
 
     monkeypatch.setattr(native, "_device_resident_budget", lambda device: 0)
     assert not pre._pipeline_enabled(10)
+
+
+@pytest.mark.parametrize("pipeline", ["0", "1"])
+def test_engine_frees_its_context_after_a_run(monkeypatch, tmp_path,
+                                              pipeline):
+    """A run leaves no reference cycle through its tile queue or its
+    pair table, so the NativeContext and its fragment-ANI engine (on a
+    card: the 2 GiB stream arena and the bitmap pools) are freed as soon
+    as the caller drops them, without waiting for the cyclic
+    collector."""
+    import gc
+    import weakref
+
+    from galah_tpu_torch.engines.native import (
+        NativeContext,
+        NativePreclusterer,
+    )
+    from galah_tpu_torch.utils.synth import make_families
+
+    paths, _ = make_families(str(tmp_path), 2, 3, genome_length=24_000,
+                             within_ani=0.97, seed=5)
+    monkeypatch.setattr(pf, "DEFAULT_BLOCK", 4)
+    for var, val in zip(ENV, (pipeline, "1", "packed", "4", "1")):
+        monkeypatch.setenv(var, val)
+    gc.collect()
+    gc.disable()
+    try:
+        ctx = NativeContext(CPU, max_genome_length=24_000)
+        alive = [weakref.ref(ctx), weakref.ref(ctx.frag_engine)]
+        assert len(NativePreclusterer(90.0, 0.15, ctx).distances(paths)) >= 6
+        del ctx
+        assert [r() for r in alive] == [None, None]
+    finally:
+        gc.enable()
