@@ -18,7 +18,13 @@ exits non-zero):
    call that computes the same counts, torch._int_mm on the rows unpacked
    to int8 0/1 (unpacked outside the timed window; a column count that is
    not a multiple of 8 is padded with zero rows and cut back), and the
-   previous design's time;
+   previous design's time; the screen epilogue kernel (K6, containment,
+   cutoff, diagonal mask and row-major hit extraction) on every bit of
+   its containment and every word of its hit buffer at the contig
+   path's tile and edge tile and the reference tile, on K1's counts of
+   random rows with planted copies (diagonal too) and on crafted
+   counts (no hit, every pair a hit past the cap, a knife-edge cutoff),
+   int32 and float32, streaming and not, with its times and bound;
    gather: the gather probe's entry point (galah_tpu_torch.tools.
    gather_probe.run_probe) at the reference probe's shape (2^17 indices
    into a 4 MiB table) and at a 256 MiB table, K3 at unroll 1, 4 and 8
@@ -128,7 +134,9 @@ On a machine with several cards phases 5-13 and 16 run on the first
 only), phase 14 takes a shard a card and phase 15 a rank a card.
 
 Each path's kernel launch counts are set to 0 just before its run and
-read just after (by shard and by rank in phases 14 and 15). The C++
+read just after (by shard and by rank in phases 14 and 15); every run
+must launch K6 once for each tile the card screened through the tile
+queue, as many times as K1 on the packed screens. The C++
 sketcher must load: the numpy fallback would change the sketch times
 many times over. The last lines are the device programs' JSON line (the
 indicator product by dtype, the grouped verify by width and gather,
@@ -211,6 +219,16 @@ K2_SHAPES = ((1024, 1024, 4096), (2048, 2048, 4096), (2048, 2048, 8192),
 # The shape whose times go into the kernels' JSON line, and for the
 # gather kernels the unroll (the one both run).
 K12_SUMMARY_SHAPE = (1024, 1024, 4096)
+# K6 (the screen epilogue) on K1's counts at the contig path's tile and
+# edge tile and at the reference-mode tile; its times in the kernels'
+# JSON line are the contig tile's (4,851 launches on the contig path).
+K6_SHAPES = (*CONTIG_TILES, REFERENCE_TILE)
+K6_SUMMARY_SHAPE = CONTIG_TILES[0]
+# float32 operations of K6's containment and cutoff an element (4
+# subtractions, 2 products, 3 divisions, 5 min/max, 1 compare) and the
+# card's float32 peak outside the tensor cores.
+K6_OPS_AN_ELEMENT = 15
+F32_OPS_PER_S = 67e12
 # ms of the previous design of each kernel, NVIDIA H100 80GB HBM3 at
 # 700 W, printed beside the new times: the count kernels' integer-ALU
 # __popc design, from this script's kernel phase before the tensor-core
@@ -494,6 +512,125 @@ def phase_kernel() -> dict:
     return out
 
 
+def _epilogue_bound(m: int, n: int, cap: int):
+    """K6's bound: the counts and sizes read once, the containment and
+    the hit buffer written once, against its float32 operations."""
+    return _bound_ms(4 * (2 * m * n + m + n + 2 + 2 * cap),
+                     K6_OPS_AN_ELEMENT * m * n, F32_OPS_PER_S)
+
+
+def _epilogue_cases(m: int, n: int, w: int, gen, dev):
+    """K6's inputs at one tile shape: (name, counts, a, b, cutoff, cap,
+    diag) for K1's counts of random rows with planted copies under the
+    screen's real cutoff (diagonal too when square), all-zero counts (no
+    hit), cutoff 0 (every pair a hit, past the cap; a small cap too),
+    and counts drawn up to min(a, b) with the cutoff set to one of
+    their containment values exactly (the knife edge)."""
+    import torch
+
+    from galah_tpu_torch.engines.native import _screen_min_containment
+    from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
+    from galah_tpu_torch.ops.popcount_screen import _popc32
+    from galah_tpu_torch.ops.prefilter import _screen_cap_for
+    from galah_tpu_torch.ops.screen_epilogue import (
+        screen_epilogue_reference,
+    )
+
+    cap = _screen_cap_for(1024)
+    cut = float(_screen_min_containment(95.0, 0.15, 15))
+    x, y = _kernel_inputs(m, n, w, gen, dev)
+    pick = torch.randperm(min(m, n), generator=gen, device=dev)[:64]
+    y[pick[:32]] = x[pick[32:]]
+    x[pick[48:]] = x[pick[32:48]]     # copies inside x: diagonal hits
+    sx, sy = (_popc32(r).sum(dim=1).to(torch.float32) for r in (x, y))
+    cases = [("k1", packed_intersect_counts(x, y), sx, sy, cut, cap, False)]
+    if m == n:
+        cases.append(("k1-diagonal", packed_intersect_counts(x, x), sx, sx,
+                      cut, cap, True))
+    k1 = cases[0][1]
+    cases += [
+        ("none", torch.zeros_like(k1), sx, sy, cut, cap, False),
+        ("over-cap", k1, sx, sy, 0.0, cap, False),
+        ("over-small-cap", k1, sx, sy, 0.0, 7, m == n),
+    ]
+    hi = torch.minimum(sx[:, None], sy[None, :]).to(torch.int64) + 1
+    drawn = (torch.rand((m, n), generator=gen, device=dev) * hi).to(
+        torch.int32)
+    cont, _ = screen_epilogue_reference(
+        drawn, sx, sy, bits_f=float(w * 32), min_cont_f=2.0, diag=False,
+        cap=cap, streaming=False)
+    knife = float(cont.reshape(-1).sort().values[-cap // 2])
+    cases.append(("knife", drawn, sx, sy, knife, cap, False))
+    return cases
+
+
+def phase_epilogue() -> dict:
+    """K6 against its plain version, on every bit of the containment and
+    every word of the hit buffer, at K6_SHAPES with int32 and float32
+    counts (_epilogue_cases, streaming and not). K6's time is the card's:
+    CUDA events around a CUDA graph of 50 calls, since one call issues
+    ~0.01 ms of device work and takes longer than that to issue; its
+    time called one by one is logged beside it. The plain version is
+    timed called one by one, as the screen ran it before K6."""
+    import torch
+
+    from galah_tpu_torch.ops.screen_epilogue import (
+        screen_epilogue as k6,
+        screen_epilogue_reference as k6_plain,
+    )
+    from galah_tpu_torch.tools.gather_probe import time_ms
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    err, checked, times = 0.0, 0, {}
+    for m, n, w in K6_SHAPES:
+        name = f"{m}x{n}"
+        cases = _epilogue_cases(m, n, w, gen, dev)
+        for case, counts, a, b, cut, cap, diag in cases:
+            for dtype in (torch.int32, torch.float32):
+                for streaming in (False, True):
+                    kw = dict(bits_f=float(w * 32), min_cont_f=cut,
+                              diag=diag, cap=cap, streaming=streaming)
+                    c = counts.to(dtype)
+                    got, want = k6(c, a, b, **kw), k6_plain(c, a, b, **kw)
+                    torch.cuda.synchronize()
+                    err = max(err, float((got[0] - want[0]).abs().max()),
+                              float((got[1].to(torch.int64)
+                                     - want[1].to(torch.int64)).abs().max()))
+                    what = (f"K6 {name} {case} {str(dtype)[6:]} "
+                            f"streaming={streaming}")
+                    check(torch.equal(got[0].view(torch.int32),
+                                      want[0].view(torch.int32)),
+                          f"{what}: containment differs")
+                    check(torch.equal(got[1], want[1]),
+                          f"{what}: hit buffer differs")
+                    checked += 1
+            hits = int(want[1][0])
+            log("kernel", f"K6 {name} {case}: bit-exact (int32 and float32 "
+                          f"counts, streaming and not); {hits} hits, cap "
+                          f"{cap}, hit rows {int(want[1][1])}, cutoff {cut!r}"
+                          f", diag {diag}")
+        counts, a, b, cut, cap = cases[0][1:6]
+        kw = dict(bits_f=float(w * 32), min_cont_f=cut, diag=False, cap=cap,
+                  streaming=False)
+        times[name] = (time_ms(lambda: k6(counts, a, b, **kw), dev, 50),
+                       _time_ms(lambda: k6_plain(counts, a, b, **kw), 10),
+                       *_epilogue_bound(m, n, cap),
+                       _time_ms(lambda: k6(counts, a, b, **kw), 50))
+        ms, plain_ms, bound_ms, bound_by, eager_ms = times[name]
+        log("kernel", f"K6 {name}: kernel {ms:.4f} ms/tile on the card (a "
+                      f"CUDA graph of 50 calls), {eager_ms:.4f} ms/tile "
+                      f"called one by one, plain {plain_ms:.4f} ms/tile, "
+                      f"bound {bound_ms:.5f} ms ({bound_by}); "
+                      f"{nvidia_smi_line()}")
+    ms, plain_ms, bound_ms, bound_by, _ = times["{}x{}".format(
+        *K6_SUMMARY_SHAPE[:2])]
+    log("kernel", f"K6: {checked} calls bit-exact against the plain version")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def _fmt_ms(ms) -> str:
     return "n/a" if ms is None else f"{ms:.4f}"
 
@@ -702,7 +839,8 @@ def _recording():
     import galah_tpu_torch.parallel.distance as dist
 
     rec = {"screen_dev": set(), "verify_dev": set(), "tile_shapes": set(),
-           "tiles": 0, "pairs": None, "verified": {}, "device_sketches": []}
+           "tiles": 0, "card_tiles": 0, "pairs": None, "verified": {},
+           "device_sketches": []}
     finish = pf.IncrementalPackedScreen.finish
     screens = ("screen_triangle_packed", "screen_triangle_popcount",
                "screen_rectangle_packed", "screen_triangle",
@@ -712,7 +850,7 @@ def _recording():
                "sharded_screen_triangle_rowsharded",
                "sharded_screen_rectangle_rowsharded")
     orig = {
-        (pf, "_containment"): pf._containment,
+        (pf, "screen_epilogue"): pf.screen_epilogue,
         (pc, "_containment"): pc._containment,
         (pt, "_pair_table_kernel"): pt._pair_table_kernel,
         (fa, "_forward_kernel"): fa._forward_kernel,
@@ -725,11 +863,15 @@ def _recording():
         **{(dist, s): getattr(dist, s) for s in sharded},
     }
 
-    def containment(fn):
+    def tile(fn, k6: bool):
+        """A screen tile's epilogue (the packed and indicator screens'
+        screen_epilogue, k6; the popcount screen's containment), by its
+        counts; card_tiles counts K6's tiles on the card."""
         def run(counts, *a, **k):
             rec["screen_dev"].add(counts.device.type)
             rec["tile_shapes"].add(tuple(counts.shape))
             rec["tiles"] += 1
+            rec["card_tiles"] += k6 and counts.device.type == "cuda"
             return fn(counts, *a, **k)
         return run
 
@@ -762,8 +904,8 @@ def _recording():
         rec["verified"].update(out)
         return out
 
-    pf._containment = containment(orig[(pf, "_containment")])
-    pc._containment = containment(orig[(pc, "_containment")])
+    pf.screen_epilogue = tile(orig[(pf, "screen_epilogue")], True)
+    pc._containment = tile(orig[(pc, "_containment")], False)
     pt._pair_table_kernel = pair_table_kernel
     fa._forward_kernel = forward_kernel
     fa._forward_kernel_bt = forward_kernel_bt
@@ -787,9 +929,32 @@ def _launch_counters():
     from galah_tpu_torch.ops.device_sketch import sketch_batch
     from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
     from galah_tpu_torch.ops.popcount_screen import popcount_tile_counts
+    from galah_tpu_torch.ops.screen_epilogue import screen_epilogue
 
     return {"K1": packed_intersect_counts, "K2": popcount_tile_counts,
-            "K5": sketch_batch}
+            "K5": sketch_batch, "K6": screen_epilogue}
+
+
+def _reset_launches(counters) -> None:
+    """Every kernel's launch count, and K1's and K6's by shard, to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+    counters["K1"].per_shard.clear()
+    counters["K6"].per_shard.clear()
+
+
+def _check_k6(tag: str, launches: dict, card_tiles: int,
+              indicator: bool = False) -> None:
+    """One K6 launch a tile the card screened through the tile queue,
+    and on the packed screens as many as K1's, by shard too."""
+    check(launches["K6"] == card_tiles,
+          f"{tag}: K6 {launches['K6']} launches for {card_tiles} tiles")
+    if not indicator:
+        check(launches["K6"] == launches["K1"],
+              f"{tag}: K6 {launches['K6']} launches, K1 {launches['K1']}")
+    check(launches.get("K6 by shard") == launches.get("K1 by shard"),
+          f"{tag}: K6 by shard {launches.get('K6 by shard')}, K1 by shard "
+          f"{launches.get('K1 by shard')}")
 
 
 def _run_cli(inputs, out_dir: str, tag: str, platform: str,
@@ -800,8 +965,10 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
     launches in this run}). A run expected to fail (expect_rc != 0)
     returns None for the metrics and the clusters. `devices`, when
     given, are the run's shards (the subcommand called with them, as
-    the CLI calls it with every local card); K1's launches by shard are
-    then under "K1 by shard"."""
+    the CLI calls it with every local card); K1's and K6's launches by
+    shard are then under "K1 by shard" and "K6 by shard". Every run must
+    launch K6 once a tile the card screened through the tile queue
+    (_check_k6)."""
     import torch
 
     from galah_tpu_torch.cli.main import build_parser, main
@@ -820,9 +987,7 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
     os.environ.update(env)
     counters = _launch_counters()
     try:
-        for fn in counters.values():
-            fn.launches = 0
-        counters["K1"].per_shard.clear()
+        _reset_launches(counters)
         torch.cuda.reset_peak_memory_stats()
         log(tag, f"device memory held before the run: "
                  f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB")
@@ -836,12 +1001,15 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
             wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         if devices is not None:
-            launches["K1 by shard"] = dict(sorted(
-                counters["K1"].per_shard.items()))
+            for k in ("K1", "K6"):
+                launches[f"{k} by shard"] = dict(sorted(
+                    counters[k].per_shard.items()))
     finally:
         for var in env:
             os.environ.pop(var, None)
     check(rc == expect_rc, f"{tag}: cluster exited {rc}, want {expect_rc}")
+    _check_k6(tag, launches, rec["card_tiles"],
+              indicator=env.get("GALAH_TPU_SCREEN") == "indicator")
     if rc:
         return wall, None, None, rec, launches
     with open(mjson) as f:
@@ -1406,8 +1574,7 @@ def _run_surface(tag: str, fn):
     """fn() with every kernel's count set to 0 just before and read just
     after; (wall, its result, recording, {kernel: launches})."""
     counters = _launch_counters()
-    for k in counters.values():
-        k.launches = 0
+    _reset_launches(counters)
     with _recording() as rec:
         t0 = time.perf_counter()
         res = fn()
@@ -1416,6 +1583,7 @@ def _run_surface(tag: str, fn):
     log("surface", f"{tag}: wall {wall:.2f} s; kernel launches "
                    f"{json.dumps(launches)}; verify on "
                    f"{sorted(rec['verify_dev'])}")
+    _check_k6(tag, launches, rec["card_tiles"])
     check(rec["verify_dev"] == {"cuda"}, f"{tag}: verify ran on "
                                          f"{rec['verify_dev']}")
     return wall, res, rec, launches
@@ -1536,16 +1704,18 @@ def phase_scale() -> None:
         ("streaming", screen_triangle_packed, {"cache_blocks": False}),
         ("popcount", screen_triangle_popcount, {}),
     ):
-        for fn in counters.values():
-            fn.launches = 0
+        _reset_launches(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = screen(rows, sizes, 15, cut, SCALE_BITS, device=dev, **kw)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         runs[name] = res
+        launches = {k: f.launches for k, f in counters.items()}
         log("scale", f"{name}: {dt:.3f} s, {len(res.pairs)} pairs, launches "
-                     f"{json.dumps({k: f.launches for k, f in counters.items()})}")
+                     f"{json.dumps(launches)}")
+        check(launches["K6"] == launches["K1"],
+              f"scale {name}: K6 {launches['K6']}, K1 {launches['K1']}")
     nb = -(-SCALE_ROWS // POPCOUNT_BLOCK)
     check(counters["K2"].launches == nb * (nb + 1) // 2,
           "one K2 launch per popcount tile")
@@ -1662,8 +1832,8 @@ def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
     GALAH_TPU_ROWSHARD=1 the row-sharded one) must give phase 9's
     candidate pairs and ANI bit for bit, its clusters.tsv, and K1
     launches by shard that sum to phase 9's tiles; the reference mode
-    over the shards must give phase 7's pairs. Returns {run: K1 by
-    shard}."""
+    over the shards must give phase 7's pairs. Returns {run: {"K1": K1
+    by shard, "K6": K6 by shard}}."""
     import numpy as np
 
     devices = _shard_devices()
@@ -1699,7 +1869,7 @@ def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
         _families_exact(clusters, contig_names, contig_fams)
         log("shards", f"{tag} OK: phase 9's {len(pp)} candidate pairs and "
                       f"ANI bit for bit, its clusters.tsv; wall {wall:.2f} s")
-        out[tag] = by_shard
+        out[tag] = {k: launches[f"{k} by shard"] for k in ("K1", "K6")}
     _, inputs = _reference_inputs(work, "shards_reference", paths, fam_ids)
     wall, m, clusters, rec, launches = _run_cli(
         inputs, work, "shards_reference", "gpu", devices=devices)
@@ -1714,7 +1884,7 @@ def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
     log("shards", f"reference OK: phase 7's {len(got.pairs)} pairs and ANI "
                   f"bit for bit, {n} clusters; K1 by shard "
                   f"{json.dumps(launches['K1 by shard'])}; wall {wall:.2f} s")
-    out["reference"] = launches["K1 by shard"]
+    out["reference"] = {k: launches[f"{k} by shard"] for k in ("K1", "K6")}
     return out
 
 
@@ -1798,6 +1968,10 @@ def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
               " contigs")
     main_k1 = [r["main"]["launches"]["K1"] for r in reports]
     contig_k1 = [r["contigs"]["launches"]["K1"] for r in reports]
+    for corpus_tag in ("main", "contigs"):
+        k6 = [r[corpus_tag]["launches"]["K6"] for r in reports]
+        k1 = [r[corpus_tag]["launches"]["K1"] for r in reports]
+        check(k6 == k1, f"{corpus_tag} corpus: K6 by rank {k6}, K1 {k1}")
     check(sorted(main_k1) == [0] * (ranks - 1) + [1],
           f"main corpus K1 by rank {main_k1}, want one launch in all")
     check(sum(contig_k1) == contig_tiles and min(contig_k1) > 0,
@@ -1971,9 +2145,7 @@ def _rank_run(tag: str, fn) -> dict:
     from galah_tpu_torch.utils import metrics
 
     counters = _launch_counters()
-    for k in counters.values():
-        k.launches = 0
-    counters["K1"].per_shard.clear()
+    _reset_launches(counters)
     m = metrics.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2057,6 +2229,7 @@ def main() -> int:
     info = phase_device()
     phase_build()
     kernels = phase_kernel()
+    epilogue = phase_epilogue()
     gather = phase_gather()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build",
@@ -2103,11 +2276,25 @@ def main() -> int:
             "launches": main_launches["K1"],
             "launches_contig_path": contig_launches["K1"],
             "launches_resume_path": {k: v["K1"] for k, v in resume.items()},
-            "launches_by_shard": shards,
+            "launches_by_shard": {k: v["K1"] for k, v in shards.items()},
             "launches_by_rank": {
                 corpus_tag: [r[corpus_tag]["launches"]["K1"] for r in ranks]
                 for corpus_tag in ("main", "contigs")},
             **kernels["packed_intersect_counts"],
+        },
+        {
+            "name": "screen_epilogue",
+            "route": "cuda",
+            "source": "galah_tpu_torch/csrc/screen_epilogue.cu",
+            "replaces": "galah_tpu/ops/prefilter.py:55",
+            "launches": main_launches["K6"],
+            "launches_contig_path": contig_launches["K6"],
+            "launches_resume_path": {k: v["K6"] for k, v in resume.items()},
+            "launches_by_shard": {k: v["K6"] for k, v in shards.items()},
+            "launches_by_rank": {
+                corpus_tag: [r[corpus_tag]["launches"]["K6"] for r in ranks]
+                for corpus_tag in ("main", "contigs")},
+            **epilogue,
         },
         {
             "name": "popcount_tile_counts",

@@ -6,13 +6,13 @@ triangle of one matrix (screen_triangle_packed) or every (query block,
 reference block) tile of a rectangle (screen_rectangle_packed). Each
 tile goes through two steps (_TileQueue):
 
-- issue, device work only: intersection counts from the
-  packed-popcount kernel (ops/packed_matmul.py), collision-corrected
-  max containment in the reference's float32 operation order
-  (_containment), the float32 cutoff and, on diagonal tiles, the
-  strict-upper mask, then the hits extracted row-major into a
-  fixed-capacity buffer (a prefix sum and a search, no host sync) with
-  their values rounded to bfloat16, and one copy of that buffer home;
+- issue, device work only, with no host sync: intersection counts from
+  the packed-popcount kernel (ops/packed_matmul.py, K1), then the
+  epilogue (ops/screen_epilogue.py, K6 on a card): collision-corrected
+  max containment in the reference's float32 operation order, the
+  float32 cutoff and, on diagonal tiles, the strict-upper mask, with
+  the hits extracted row-major into a fixed-capacity buffer, their
+  values rounded to bfloat16; then one copy of that buffer home;
 - drain, once the copy has landed: the reference's overflow rules
   (_drain_tile) and its emit rules (_emit_tile).
 
@@ -65,6 +65,10 @@ import numpy as np
 import torch
 
 from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
+from galah_tpu_torch.ops.screen_epilogue import _bf16, screen_epilogue
+# The containment stays importable from here, where the popcount screen
+# and the tests read it.
+from galah_tpu_torch.ops.screen_epilogue import _containment  # noqa: F401
 from galah_tpu_torch.utils import metrics
 from galah_tpu_torch.utils.convert import to_device, words_to_torch
 
@@ -225,45 +229,6 @@ def _indicator_counts(dtname: str) -> Callable[..., torch.Tensor]:
     return counts
 
 
-def _containment(
-    counts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, bits_f: float
-) -> torch.Tensor:
-    """Collision-corrected max containment, float32.
-
-    counts: (bi, bj); a: (bi,) sizes; b: (bj,) sizes.
-    Two-step correction: E[c_obs] ~= c + (a-c)(b-c)/B."""
-    a = a[:, None]
-    b = b[None, :]
-    c1 = torch.clamp(counts - a * b / bits_f, min=0.0)
-    c = torch.clamp(counts - (a - c1) * (b - c1) / bits_f, min=0.0)
-    denom = torch.clamp(torch.minimum(a, b), min=1.0)
-    return torch.clamp(c / denom, max=1.0)
-
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """float32 values rounded to bfloat16, as float32."""
-    return x.to(torch.bfloat16).to(torch.float32)
-
-
-def _extract_hits(mask: torch.Tensor, cont: torch.Tensor,
-                  slots: torch.Tensor, rows: bool) -> torch.Tensor:
-    """One tile's hits as one int32 device buffer of 2 + 2 * cap words,
-    with no host sync: [hit count, rows with a hit (when `rows`, else
-    0), the first cap hits' flat indices row-major, their
-    bfloat16-rounded containment as float32 bits]. `slots` is
-    1..cap as int32: the hit of slot s is the first position whose
-    inclusive prefix count reaches s, and slots past the count hold the
-    tile's last position."""
-    flat = mask.reshape(-1)
-    csum = torch.cumsum(flat, 0, dtype=torch.int32)
-    idx = torch.searchsorted(csum, slots, out_int32=True)
-    idx = idx.clamp_(max=flat.numel() - 1)
-    vals = _bf16(cont.reshape(-1).index_select(0, idx))
-    hit_rows = (mask.any(dim=1).sum(dtype=torch.int32).view(1) if rows
-                else torch.zeros(1, dtype=torch.int32, device=mask.device))
-    return torch.cat([csum[-1:], hit_rows, idx, vals.view(torch.int32)])
-
-
 def _emit_tile(
     ii: np.ndarray,
     jj: np.ndarray,
@@ -324,7 +289,7 @@ class _TileQueue:
         self.inv_k = 1.0 / k
         self.streaming = streaming
         # The shard whose tiles this queue issues (parallel/distance.py),
-        # passed to K1's wrapper for its per-shard launch count.
+        # passed to K1's and K6's wrappers for their per-shard launch counts.
         self.shard = shard
         # (row block, column block) -> float32 counts: the indicator
         # screens' product; None for K1's. (A default closing over self
@@ -344,7 +309,6 @@ class _TileQueue:
         self._pending: "deque[_Tile]" = deque()
         self._free: List[torch.Tensor] = []  # pinned hit buffers to reuse
         self._upper: Dict[Tuple, torch.Tensor] = {}
-        self._slots: Dict[torch.device, torch.Tensor] = {}
 
     def _upper_mask(self, shape, device) -> torch.Tensor:
         key = (tuple(shape), device)
@@ -353,25 +317,16 @@ class _TileQueue:
                 shape, dtype=torch.bool, device=device).triu_(1)
         return self._upper[key]
 
-    def _slots_on(self, device) -> torch.Tensor:
-        if device not in self._slots:
-            self._slots[device] = torch.arange(
-                1, self.cap + 1, dtype=torch.int32, device=device)
-        return self._slots[device]
-
     def issue(self, si: torch.Tensor, sj: torch.Tensor, ai: torch.Tensor,
               aj: torch.Tensor, *, diag: bool, row0: int, col0: int) -> None:
         """Queue one tile (row block si with sizes ai against column
         block sj with sizes aj) and drain tiles past the window."""
         counts = (self._counts(si, sj) if self._counts else
-                  packed_intersect_counts(si, sj, shard=self.shard).to(
-                      torch.float32))
-        cont = _containment(counts, ai, aj, self.bits_f)
-        mask = cont >= self.min_cont_f
-        if diag:
-            mask &= self._upper_mask(mask.shape, mask.device)
-        hits = _extract_hits(mask, cont, self._slots_on(mask.device),
-                             rows=self.streaming)
+                  packed_intersect_counts(si, sj, shard=self.shard))
+        cont, hits = screen_epilogue(
+            counts, ai, aj, bits_f=self.bits_f, min_cont_f=self.min_cont_f,
+            diag=diag, cap=self.cap, streaming=self.streaming,
+            shard=self.shard)
         done = None
         if hits.device.type == "cuda":
             host = (self._free.pop() if self._free else torch.empty(

@@ -20,6 +20,9 @@ tile. On the card:
   per tile, kernel launches per tile, and the device's busy share of
   that window's wall (the union of its kernels' and copies' intervals
   over the wall), as a JSON line and key_averages tables under --out.
+  Each tile runs K1 and the epilogue K6 (ops/screen_epilogue.py, its
+  kernels containment_rows and compact_hits in the device table); the
+  sweep counts both kernels' launches.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them and one JSON object. Needs a CUDA device: there is nothing to time
@@ -184,6 +187,7 @@ def main(argv=None) -> int:
         return 1
     from galah_tpu_torch.engines.native import _screen_min_containment
     from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
+    from galah_tpu_torch.ops.screen_epilogue import screen_epilogue
 
     os.makedirs(args.out, exist_ok=True)
     device = torch.device("cuda", 0)
@@ -194,9 +198,10 @@ def main(argv=None) -> int:
     packed_intersect_counts(x[:8], x[:8])  # build and load the kernels
     result = {"rows": args.rows, "words": args.words,
               "mean_set_bits": float(s.mean()), "cutoff": cut}
-    launches = packed_intersect_counts.launches
+    k1, k6 = packed_intersect_counts.launches, screen_epilogue.launches
     result["sweep"] = timed_sweep(x, s, bits, cut)
-    result["sweep"]["k1_launches"] = packed_intersect_counts.launches - launches
+    result["sweep"]["k1_launches"] = packed_intersect_counts.launches - k1
+    result["sweep"]["k6_launches"] = screen_epilogue.launches - k6
     print("sweep: " + json.dumps(result["sweep"]), flush=True)
     result["window"] = profiled_window(x, s, bits, cut, args.window_blocks,
                                        args.out)

@@ -939,3 +939,217 @@ def test_bt_matches_word_on_a_large_stream(cuda_device):
     for w, t in zip(word, bt):
         assert torch.equal(w, t)
     assert (word[1][:16] > 0.9).all() and (word[1][16:] < 0.2).all()
+
+
+# ------------------------------------------------ K6 the screen epilogue
+
+
+def _epilogue_cases(m, n, w, device):
+    """(name, counts, a, b, cutoff, cap, diag) at one tile shape: K1's
+    counts of random rows with planted copies (also as a diagonal tile
+    when square) under a screen-like cutoff, all-zero counts (no hit),
+    cutoff 0 (every pair a hit, past the cap and past a cap of 7), and
+    counts drawn up to min(a, b) with the cutoff set exactly to one of
+    their containment values."""
+    from galah_tpu_torch.ops.popcount_screen import _popc32
+    from galah_tpu_torch.ops.screen_epilogue import screen_epilogue_reference
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(m * 7 + n * 3 + w)
+    x = (torch.rand((m, w * 32), generator=gen, device=device) < 0.06)
+    y = (torch.rand((n, w * 32), generator=gen, device=device) < 0.06)
+    k = min(m, n) // 4
+    y[:k] = x[m - k:]                   # copies across the tile
+    x[:k // 2] = x[k // 2:k]            # and inside x
+    weights = (1 << torch.arange(32, device=device, dtype=torch.int64))
+
+    def pack(ind):
+        words = (ind.view(ind.shape[0], w, 32).to(torch.int64)
+                 * weights).sum(dim=2)
+        return torch.where(words >= 1 << 31, words - (1 << 32),
+                           words).to(torch.int32)
+
+    xp, yp = pack(x), pack(y)
+    sx, sy = (_popc32(r).sum(dim=1).to(torch.float32) for r in (xp, yp))
+    cap = 16384
+    k1 = packed_intersect_counts(xp, yp)
+    cases = [("k1", k1, sx, sy, 0.3, cap, False),
+             ("none", torch.zeros_like(k1), sx, sy, 0.3, cap, False),
+             ("over-cap", k1, sx, sy, 0.0, cap, False),
+             ("over-small-cap", k1, sx, sy, 0.0, 7, False)]
+    if m == n:
+        cases.append(("k1-diagonal", packed_intersect_counts(xp, xp), sx,
+                      sx, 0.3, cap, True))
+        cases.append(("diagonal-cutoff-0", packed_intersect_counts(xp, xp),
+                      sx, sx, 0.0, 7, True))
+    hi = torch.minimum(sx[:, None], sy[None, :]).to(torch.int64) + 1
+    drawn = (torch.rand((m, n), generator=gen, device=device) * hi).to(
+        torch.int32)
+    cont, _ = screen_epilogue_reference(
+        drawn, sx, sy, bits_f=float(w * 32), min_cont_f=2.0, diag=False,
+        cap=cap, streaming=False)
+    knife = float(cont.reshape(-1).sort().values[-(m * n + 3) // 4])
+    cases.append(("knife", drawn, sx, sy, knife, cap, False))
+    return cases
+
+
+@pytest.mark.parametrize("m,n,w", [
+    (1024, 1024, 1024),   # the contig path's tile
+    (1024, 672, 1024),    # its edge tile
+    (896, 128, 4096),     # the reference-mode tile
+    (300, 257, 16),       # nothing a multiple of a block edge
+    (1, 1, 8),
+])
+def test_screen_epilogue_matches_plain_version(cuda_device, m, n, w):
+    """K6 against its plain version on every bit of the containment and
+    every word of the hit buffer, int32 and float32 counts, streaming
+    and not."""
+    from galah_tpu_torch.ops.screen_epilogue import (
+        screen_epilogue,
+        screen_epilogue_reference,
+    )
+
+    seen = set()
+    for name, counts, a, b, cut, cap, diag in _epilogue_cases(
+            m, n, w, cuda_device):
+        for dtype in (torch.int32, torch.float32):
+            for streaming in (False, True):
+                kw = dict(bits_f=float(w * 32), min_cont_f=cut, diag=diag,
+                          cap=cap, streaming=streaming)
+                c = counts.to(dtype)
+                before = screen_epilogue.launches
+                got = screen_epilogue(c, a, b, **kw)
+                want = screen_epilogue_reference(c, a, b, **kw)
+                torch.cuda.synchronize()
+                assert screen_epilogue.launches == before + 1
+                assert torch.equal(got[0].view(torch.int32),
+                                   want[0].view(torch.int32)), name
+                assert torch.equal(got[1], want[1]), name
+                seen.add((name, int(want[1][0]) > cap, int(want[1][0]) > 0))
+    if m * n > 7:
+        assert ("none", False, False) in seen
+        assert ("over-small-cap", True, True) in seen
+
+
+@pytest.mark.parametrize("m,n", [(0, 5), (5, 0)])
+def test_screen_epilogue_on_an_empty_tile(cuda_device, m, n):
+    from galah_tpu_torch.ops.screen_epilogue import screen_epilogue
+
+    counts = torch.zeros((m, n), dtype=torch.int32, device=cuda_device)
+    ones = torch.ones(max(m, n), device=cuda_device)
+    cont, hits = screen_epilogue(counts, ones[:m], ones[:n], bits_f=64.0,
+                                 min_cont_f=0.0, diag=False, cap=4,
+                                 streaming=True)
+    assert cont.shape == (m, n)
+    assert torch.equal(hits.cpu(), torch.zeros(10, dtype=torch.int32))
+
+
+def test_screen_epilogue_counts_its_launches_by_shard(cuda_device):
+    from galah_tpu_torch.ops.screen_epilogue import screen_epilogue
+
+    counts = torch.zeros((8, 8), dtype=torch.int32, device=cuda_device)
+    s = torch.ones(8, device=cuda_device)
+    before = screen_epilogue.launches
+    shard0, shard1 = (screen_epilogue.per_shard[i] for i in (0, 1))
+    for shard in (0, 1, 1, None):
+        screen_epilogue(counts, s, s, bits_f=64.0, min_cont_f=0.5, diag=True,
+                        cap=4, streaming=False, shard=shard)
+    assert screen_epilogue.launches == before + 4
+    assert screen_epilogue.per_shard[0] == shard0 + 1
+    assert screen_epilogue.per_shard[1] == shard1 + 2
+
+
+def test_screen_epilogue_raises_on_a_failed_launch(cuda_device, monkeypatch):
+    """A CUDA error from K6's entry raises with its code and counts no
+    launch: there is no fallback to the plain version."""
+    from types import SimpleNamespace
+
+    from galah_tpu_torch.ops import _build
+    from galah_tpu_torch.ops.screen_epilogue import screen_epilogue
+
+    monkeypatch.setattr(_build, "load_library", lambda: SimpleNamespace(
+        galah_screen_epilogue=lambda *args: 98))
+    counts = torch.zeros((8, 8), dtype=torch.int32, device=cuda_device)
+    s = torch.ones(8, device=cuda_device)
+    before = screen_epilogue.launches
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        screen_epilogue(counts, s, s, bits_f=64.0, min_cont_f=0.5,
+                        diag=False, cap=4, streaming=False)
+    assert screen_epilogue.launches == before
+
+
+def test_screen_issue_runs_k1_k6_and_the_copy_only(cuda_device):
+    """Under torch.profiler one packed tile's issue step runs K1 (and
+    the zeroing of its output when W is split), K6's two kernels and
+    the copy home, nothing else on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from galah_tpu_torch.ops import prefilter as pf
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(12)
+    x = _random_words(gen, (1024, 1024), cuda_device)
+    s = torch.full((1024,), 16384.0, device=cuda_device)
+    queue = pf._TileQueue(1 << 15, 0.5, 1024, 15, streaming=False)
+    queue.issue(x, x, s, s, diag=True, row0=0, col0=0)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        queue.issue(x, x, s, s, diag=False, row0=0, col0=1024)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if "emcpy" not in n]
+    assert any("containment_rows" in n for n in kernels), names
+    assert any("compact_hits" in n for n in kernels), names
+    assert any("packed_popcount" in n for n in kernels), names
+    assert all(any(k in n for k in ("containment_rows", "compact_hits",
+                                    "packed_popcount", "fill", "Fill"))
+               for n in kernels), names
+    assert len(kernels) <= 4 and len(names) - len(kernels) == 1, names
+    queue.result()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "f32"])
+def test_indicator_screen_issue_never_syncs(cuda_device, monkeypatch, dtype):
+    """The indicator screen's tiles (the product, then K6 on its float32
+    counts, then the copy home) are issued under sync debug mode
+    "error"; the drained pairs equal the CPU's."""
+    from galah_tpu_torch.ops import prefilter as pf
+
+    monkeypatch.setenv("GALAH_TPU_SCREEN_DTYPE", dtype)
+    ind, _ = _near_duplicate_rows(9, 600, 200)
+    ind = ind.astype(np.uint8)
+    sizes = torch.from_numpy(ind.sum(axis=1).astype(np.float32))
+    rows = torch.from_numpy(ind)
+    counts = pf._indicator_counts(dtype)
+
+    def screen(device):
+        q = pf._TileQueue(ind.shape[1], 0.69, 256, 15, streaming=True,
+                          counts=counts)
+        x, s = rows.to(device), sizes.to(device)
+        q.issue(x[:8], x[:8], s[:8], s[:8], diag=True, row0=0, col0=0)
+        q.result()
+        q.pairs.clear()
+        q.anis.clear()
+        torch.cuda.synchronize()
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for bi in range(3):
+                for bj in range(bi, 3):
+                    q.issue(x[bi * 256:(bi + 1) * 256],
+                            x[bj * 256:(bj + 1) * 256],
+                            s[bi * 256:(bi + 1) * 256],
+                            s[bj * 256:(bj + 1) * 256], diag=bi == bj,
+                            row0=bi * 256, col0=bj * 256)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert len(q._pending) == 6
+        return q.result()
+
+    got, want = screen(cuda_device), screen(CPU)
+    np.testing.assert_array_equal(got.pairs, want.pairs)
+    np.testing.assert_array_equal(got.ani_est.view(np.int32),
+                                  want.ani_est.view(np.int32))
+    assert len(want.pairs) > 1000
