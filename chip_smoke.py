@@ -25,6 +25,12 @@ exits non-zero):
    random rows with planted copies (diagonal too) and on crafted
    counts (no hit, every pair a hit past the cap, a knife-edge cutoff),
    int32 and float32, streaming and not, with its times and bound;
+   k7: the pair-table verify kernel (K7, csrc/pair_table_verify.cu)
+   against its plain version, bit for bit, on batches made at the pair
+   table's edges (one pair, one source shared by 64 pairs, a batch at
+   the 2^23 flat-hash cap, fragments under min_fragment_hashes, a target
+   whose popcount is within 4 of its bits, streams at non-zero arena
+   offsets);
    gather: the gather probe's entry point (galah_tpu_torch.tools.
    gather_probe.run_probe) at the reference probe's shape (2^17 indices
    into a 4 MiB table) and at a 256 MiB table, K3 at unroll 1, 4 and 8
@@ -48,7 +54,9 @@ exits non-zero):
    and the three phases overlapped (phases_overlapped, every verify
    stream read from the stream arena); it prints the sketch phase's
    split (read, upload, K5 and the bucket gather, bitmaps to bucket
-   lists, host copies);
+   lists, host copies); then every pair-table batch of the run, its
+   arguments as passed, through K7 and through its plain version, bit
+   for bit, with both timed on the largest batch beside K7's bound;
 6. popcount path: the same run with GALAH_TPU_SCREEN=popcount must give
    a byte-identical clusters.tsv through K2, with K1 never launched;
 7. reference mode: the first genome of each family as
@@ -70,9 +78,11 @@ exits non-zero):
    the C++ sketcher's, through K5 and K1, with the phases overlapped:
    the first screen tile issued before the last contig was sketched
    (screen_rows_at_first_dispatch), every verify stream read from the
-   stream arena with no reset; then once more with GALAH_TPU_PIPELINE=0,
-   which must give the same candidate pairs and a byte-identical
-   clusters.tsv;
+   stream arena with no reset; its pair-table batches replayed through
+   K7 and the plain version as in phase 5; then once more with
+   GALAH_TPU_PIPELINE=0, which must give the same candidate pairs and a
+   byte-identical clusters.tsv (its verify takes the pairs in one
+   chunk, not flush by flush, so its pair-table batches differ);
 10. resume: the resume artifacts on a contig corpus of the contig
    path's shape cut to 20,000 contigs (4,000 families of 5; 210 tiles),
    each run's clusters.tsv byte-identical to a default run's over it:
@@ -122,12 +132,16 @@ exits non-zero):
    genomes (98% ANI), whose fragment streams all exceed 2^20 hashes
    (checked first; the smallest is printed), so every verify takes the
    grouped path, three times: GALAH_TPU_VERIFY_GATHER=word, =bt and
-   unset (words). Each must find the 8 families with no verify on the
-   pair table; clusters.tsv, ANI and AF must be bit-identical across the
-   three. Then the grouped verify on one stream against 8, 32, 64 and
-   128 references, word against bt (bit-identical), with CUDA-event
-   times, the rows and bytes each gathers, a byte bound and the gathers
-   priced at the gather probe's measured row rates.
+   unset (words, through K8, csrc/grouped_verify.cu). Each must find the
+   8 families with no verify on the pair table; clusters.tsv and AF must
+   be identical across the three, ANI bit-identical between word and
+   unset and within 1e-4 percentage points of them under bt. Then the
+   grouped verify on one stream against 8, 32, 64 and 128 references:
+   the plain word version against bt (bit-identical), K8 against the
+   plain word version (AF equal, |dANI| <= 1e-4) and against itself over
+   two calls, with CUDA-event times of the three, the rows and bytes
+   each gathers, a byte bound and the gathers priced at the gather
+   probe's measured row rates.
 
 On a machine with several cards phases 5-13 and 16 run on the first
 (every entry point that resolves the local devices is given cuda:0
@@ -136,7 +150,9 @@ only), phase 14 takes a shard a card and phase 15 a rank a card.
 Each path's kernel launch counts are set to 0 just before its run and
 read just after (by shard and by rank in phases 14 and 15); every run
 must launch K6 once for each tile the card screened through the tile
-queue, as many times as K1 on the packed screens. The C++
+queue, as many times as K1 on the packed screens, K7 once for each
+pair-table batch and K8 once for each grouped word dispatch, and must
+call neither verify kernel's plain version on a CUDA tensor. The C++
 sketcher must load: the numpy fallback would change the sketch times
 many times over. The last lines are the device programs' JSON line (the
 indicator product by dtype, the grouped verify by width and gather,
@@ -180,6 +196,9 @@ K5_GENOMES = 8                 # main-corpus genomes of K5's check
 K5_MAIN_GENOMES = 64           # the main path's batch (64 MiB / 2^20)
 K5_CONTIGS = 2_000             # contig-corpus contigs of K5's check
 ANI_TOL = 1e-3                 # percentage points, GPU vs CPU verify ANI
+# percentage points, K8 against its plain version (and the bt gather) on
+# the card: the two sum float32 identities in different orders.
+K8_ANI_TOL = 1e-4
 SCALE_ROWS = 10_240
 RANKS = 2                      # phase 15's processes on one card
 RANK_TIMEOUT_S = 600           # phase 15's time limit and collective timeout
@@ -197,6 +216,8 @@ GROUPED_MIN_HASHES = 1 << 20
 # random and ascending indices into a table beyond the L2), at which
 # its gathers are priced.
 GROUPED_REFS = (8, 32, 64, 128)
+# The width whose K8 times go into the kernels' JSON line.
+K8_SUMMARY_REFS = 8
 PROBE_ROWS_PER_S = {"random": 3.2e10, "ascending": 6.5e10}
 SCALE_SET_BITS = 5_000         # expected set bits per row
 SCALE_PLANTED = 200
@@ -631,6 +652,156 @@ def phase_epilogue() -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _k7_bound(args, kw):
+    """K7's bound for one batch as passed: the stream and the fragment
+    offsets of each distinct source read once (the pairs of one source
+    share them), each distinct bitmap row and popcount once, the pair
+    descriptors read and the results written once (bytes), against one
+    bit test a (pair, hash) on the integer ALUs. Returns (bound ms,
+    "bytes" or "operations", bytes)."""
+    import numpy as np
+
+    bitmaps, pref, prow = args[2], args[8], args[9]
+    psrc, pfs, pffs = (a.cpu().numpy().astype(np.int64)
+                       for a in (args[4], args[5], args[7]))
+    p = psrc.shape[0]
+    first = np.unique(psrc, return_index=True)[1]
+    stream = int(np.diff(pfs)[first].sum())
+    offsets = int((np.diff(pffs)[first] + 1).sum())
+    rows = int(np.unique(prow.cpu().numpy()).size)
+    refs = int(np.unique(pref.cpu().numpy()).size)
+    nbytes = (4 * stream + 4 * offsets + 4 * bitmaps.shape[1] * rows
+              + 4 * refs + (4 + 4 + 4 + 4 + 8 + 8) * p + 8 + 8 * p)
+    return (*_bound_ms(nbytes, kw["n_flat"], INT_ALU_OPS_PER_S), nbytes)
+
+
+def _k7_compare(what: str, args, kw):
+    """K7 and its plain version on one batch: equal on every bit of ANI
+    and AF. Returns (the largest difference, 0.0; AF)."""
+    import torch
+
+    from galah_tpu_torch.ops import pair_table as pt
+
+    got = pt._pair_table_kernel(*args, **kw)
+    want = pt._pair_table_plain(*args, **kw)
+    for x, y, name in zip(got, want, ("ANI", "AF")):
+        check(torch.equal(x.view(torch.int32), y.view(torch.int32)),
+              f"K7 {what}: {name} differs from the plain version")
+    return max((float((x - y).abs().max()) for x, y in zip(got, want)
+                if x.numel()), default=0.0), got[1]
+
+
+def replay_k7(tag: str, batches) -> dict:
+    """Every pair-table batch a run recorded (its arguments as passed,
+    the big operands by reference), through K7 and through its plain
+    version on the card: bit for bit. Then CUDA-event times of both on
+    the batch with the most flat hashes: K7 in a CUDA graph of 20 calls
+    (and called one by one), the plain version called one by one; and
+    K7's bound there. Returns the numbers."""
+    import torch
+
+    from galah_tpu_torch.ops import pair_table as pt
+    from galah_tpu_torch.tools.gather_probe import time_ms
+
+    check(len(batches) > 0, f"K7 {tag}: the run recorded no batch")
+    err = 0.0
+    calls = [(a, {k: v for k, v in kw.items() if k != "shard"})
+             for a, kw in batches]
+    for i, (args, kw) in enumerate(calls):
+        err = max(err, _k7_compare(f"{tag} batch {i}", args, kw)[0])
+    args, kw = max(calls, key=lambda c: c[1]["n_flat"])
+    dev = args[0].device
+    ms = time_ms(lambda: pt._pair_table_kernel(*args, **kw), dev, 20)
+    eager_ms = _time_ms(lambda: pt._pair_table_kernel(*args, **kw), 20)
+    plain_ms = _time_ms(lambda: pt._pair_table_plain(*args, **kw), 5)
+    bound_ms, bound_by, nbytes = _k7_bound(args, kw)
+    out = {"batches": len(calls), "max_abs_err": err, "ms": ms,
+           "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_bytes": nbytes,
+           "pairs": int(args[6].shape[0]), "flat_hashes": kw["n_flat"],
+           "flat_fragments": kw["n_flat_frags"]}
+    log("k7", f"{tag}: {len(calls)} recorded batches through K7 and the "
+              f"plain version, bit-identical; the largest ({out['pairs']} "
+              f"pairs, {out['flat_hashes']} hashes, {out['flat_fragments']} "
+              f"fragments): K7 {ms:.4f} ms (a CUDA graph; {eager_ms:.4f} ms "
+              f"called one by one), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}, {nbytes} bytes); "
+              f"{nvidia_smi_line()}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k7_edge_batch(seed: int, dev, *, bits: int, **case):
+    """A pair-table batch from galah_tpu_torch/utils/synth.py's
+    pair_table_batch (the arena and pool layout, made with numpy from
+    `seed`), on the card. Returns (args, kwargs) of _pair_table_kernel
+    at the default fragment ANI settings."""
+    from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.utils.synth import pair_table_args, pair_table_batch
+
+    *args, n_flat, n_flat_frags = pair_table_args(
+        pair_table_batch(seed, bits=bits, **case), dev)
+    cfg = fa.FragmentAniConfig()
+    kw = dict(n_flat=n_flat, n_flat_frags=n_flat_frags, bits=bits, k=cfg.k,
+              min_hashes=cfg.min_fragment_hashes,
+              min_ident=cfg.min_fragment_identity)
+    return tuple(args), kw
+
+
+def phase_k7_edges() -> float:
+    """K7 against its plain version, bit for bit, on batches made at the
+    pair table's edges: one pair; every pair sharing one source; a batch
+    at the 2^23 flat-hash cap; fragments under min_fragment_hashes (and
+    empty ones); a target with every bit but one set (1 - p under the
+    1e-6 clamp); streams at non-zero arena offsets. The batches come
+    from galah_tpu_torch/utils/synth.py::pair_table_batch. Returns the
+    largest difference (0.0)."""
+    import torch
+
+    from galah_tpu_torch.ops.pair_table import PairTableConfig
+
+    dev = torch.device("cuda", 0)
+    cap = PairTableConfig(member_bits=1, k=1, min_fragment_hashes=1,
+                          min_fragment_identity=0.0).max_flat_hashes
+    genome = dict(frags=333, sizes=(375,))      # ~ a 1 Mb genome's fragments
+    cases = {
+        "one pair": dict(n_src=1, **genome, g=1, pairs=[(0, 0)],
+                         bits=1 << 22),
+        "shared source": dict(n_src=1, **genome, g=64,
+                              pairs=[(0, t) for t in range(64)],
+                              bits=1 << 22),
+        "flat-hash cap": dict(n_src=8, frags=256, sizes=(512,), g=8,
+                              pairs=[(s, t) for s in range(8)
+                                     for t in range(8)], bits=1 << 22),
+        "under min hashes": dict(n_src=4, frags=260, sizes=tuple(range(13)),
+                                 g=4, pairs=[(s, t) for s in range(4)
+                                             for t in range(4)],
+                                 bits=1 << 20),
+        "popcount near bits": dict(n_src=2, frags=100, sizes=(375,), g=2,
+                                   pairs=[(0, 0), (0, 1), (1, 0), (1, 1)],
+                                   bits=1 << 22, full=True),
+        "arena offsets": dict(n_src=3, frags=40, sizes=(40, 300, 9, 700),
+                              g=3, pairs=[(2, 0), (1, 1), (2, 2), (0, 1)],
+                              bits=1 << 22, lead=123_457),
+    }
+    err = 0.0
+    for name, case in cases.items():
+        args, kw = _k7_edge_batch(713, dev, **case)
+        if name == "flat-hash cap":
+            check(kw["n_flat"] == cap, f"K7 {name}: {kw['n_flat']} hashes")
+        if name == "popcount near bits":
+            check(float(args[3][-1]) > case["bits"] * (1 - 1e-6),
+                  f"K7 {name}: popcount {float(args[3][-1])}")
+        diff, af = _k7_compare(name, args, kw)
+        err = max(err, diff)
+        log("k7", f"{name}: {len(case['pairs'])} pairs, {kw['n_flat']} flat "
+                  f"hashes, {kw['n_flat_frags']} fragments: bit-identical; "
+                  f"AF {float(af.min()):.4f}-{float(af.max()):.4f}")
+        del args
+    torch.cuda.empty_cache()
+    return err
+
+
 def _fmt_ms(ms) -> str:
     return "n/a" if ms is None else f"{ms:.4f}"
 
@@ -827,9 +998,13 @@ def phase_sketch_kernel(genome_paths, contig_path: str) -> dict:
 
 
 @contextlib.contextmanager
-def _recording():
+def _recording(keep_batches: bool = False):
     """Record the devices the screen and verify ran on, the screen's
-    candidate pairs and the verify results of one run."""
+    candidate pairs and the verify results of one run; the pair-table
+    batches planned ("pt_batches") and the calls of K7's and K8's plain
+    versions on CUDA tensors ("plain_on_card"), which must be none. With
+    `keep_batches`, every pair-table batch's arguments as passed
+    ("pt_args", for replay: the big operands by reference)."""
     import galah_tpu_torch.engines.native as native
     import galah_tpu_torch.ops.device_sketch as ds
     import galah_tpu_torch.ops.fragment_ani as fa
@@ -840,7 +1015,8 @@ def _recording():
 
     rec = {"screen_dev": set(), "verify_dev": set(), "tile_shapes": set(),
            "tiles": 0, "card_tiles": 0, "pairs": None, "verified": {},
-           "device_sketches": []}
+           "device_sketches": [], "pt_batches": 0, "plain_on_card": 0,
+           "pt_args": []}
     finish = pf.IncrementalPackedScreen.finish
     screens = ("screen_triangle_packed", "screen_triangle_popcount",
                "screen_rectangle_packed", "screen_triangle",
@@ -853,7 +1029,11 @@ def _recording():
         (pf, "screen_epilogue"): pf.screen_epilogue,
         (pc, "_containment"): pc._containment,
         (pt, "_pair_table_kernel"): pt._pair_table_kernel,
+        (pt, "_pair_table_plain"): pt._pair_table_plain,
+        (pt.PairTableVerifier, "_plan_batches"):
+            pt.PairTableVerifier._plan_batches,
         (fa, "_forward_kernel"): fa._forward_kernel,
+        (fa, "_forward_plain"): fa._forward_plain,
         (fa, "_forward_kernel_bt"): fa._forward_kernel_bt,
         (fa.FragmentAniEngine, "bidirectional"):
             fa.FragmentAniEngine.bidirectional,
@@ -877,7 +1057,20 @@ def _recording():
 
     def pair_table_kernel(ustream, *a, **k):
         rec["verify_dev"].add(ustream.device.type)
+        if keep_batches:
+            rec["pt_args"].append(((ustream, *a), dict(k)))
         return orig[(pt, "_pair_table_kernel")](ustream, *a, **k)
+
+    def plain(key):
+        def run(first, *a, **k):
+            rec["plain_on_card"] += first.device.type == "cuda"
+            return orig[key](first, *a, **k)
+        return run
+
+    def plan_batches(self, *a, **k):
+        batches = orig[(pt.PairTableVerifier, "_plan_batches")](self, *a, **k)
+        rec["pt_batches"] += len(batches)
+        return batches
 
     def forward_kernel(bitmaps, *a, **k):
         rec["verify_dev"].add(bitmaps.device.type)
@@ -907,7 +1100,10 @@ def _recording():
     pf.screen_epilogue = tile(orig[(pf, "screen_epilogue")], True)
     pc._containment = tile(orig[(pc, "_containment")], False)
     pt._pair_table_kernel = pair_table_kernel
+    pt._pair_table_plain = plain((pt, "_pair_table_plain"))
+    pt.PairTableVerifier._plan_batches = plan_batches
     fa._forward_kernel = forward_kernel
+    fa._forward_plain = plain((fa, "_forward_plain"))
     fa._forward_kernel_bt = forward_kernel_bt
     fa.FragmentAniEngine.bidirectional = bidirectional
     ds.sketch_host_batch = sketch_host_batch
@@ -927,20 +1123,46 @@ def _recording():
 
 def _launch_counters():
     from galah_tpu_torch.ops.device_sketch import sketch_batch
+    from galah_tpu_torch.ops.fragment_ani import _forward_kernel
     from galah_tpu_torch.ops.packed_matmul import packed_intersect_counts
+    from galah_tpu_torch.ops.pair_table import _pair_table_kernel
     from galah_tpu_torch.ops.popcount_screen import popcount_tile_counts
     from galah_tpu_torch.ops.screen_epilogue import screen_epilogue
 
     return {"K1": packed_intersect_counts, "K2": popcount_tile_counts,
-            "K5": sketch_batch, "K6": screen_epilogue}
+            "K5": sketch_batch, "K6": screen_epilogue,
+            "K7": _pair_table_kernel, "K8": _forward_kernel}
+
+
+# The kernels whose launches are also counted by shard.
+BY_SHARD = ("K1", "K6", "K7", "K8")
 
 
 def _reset_launches(counters) -> None:
-    """Every kernel's launch count, and K1's and K6's by shard, to 0."""
+    """Every kernel's launch count, and those of BY_SHARD by shard, to 0."""
     for fn in counters.values():
         fn.launches = 0
-    counters["K1"].per_shard.clear()
-    counters["K6"].per_shard.clear()
+    for k in BY_SHARD:
+        counters[k].per_shard.clear()
+
+
+def _check_verify(tag: str, launches: dict, rec, counters) -> None:
+    """The verify's kernels: no plain version ran on a CUDA tensor; on
+    the card, one K7 launch a planned pair-table batch and one K8 launch
+    a grouped word dispatch (the run's metrics `counters`, when it
+    wrote them); on the CPU neither."""
+    check(rec["plain_on_card"] == 0,
+          f"{tag}: {rec['plain_on_card']} plain verify calls on the card")
+    card = rec["verify_dev"] == {"cuda"}
+    want = rec["pt_batches"] if card else 0
+    check(launches["K7"] == want,
+          f"{tag}: K7 {launches['K7']} launches for {want} card batches")
+    if counters is not None:
+        want = int(counters.get("verify_grouped_word_dispatches", 0)) \
+            if card else 0
+        check(launches["K8"] == want,
+              f"{tag}: K8 {launches['K8']} launches for {want} word "
+              "dispatches on the card")
 
 
 def _check_k6(tag: str, launches: dict, card_tiles: int,
@@ -959,16 +1181,19 @@ def _check_k6(tag: str, launches: dict, card_tiles: int,
 
 def _run_cli(inputs, out_dir: str, tag: str, platform: str,
              screen: str | None = None, flags=(), env=None, expect_rc=0,
-             devices=None):
+             devices=None, keep_batches=False):
     """One `cluster` run, with the environment variables `env` set for
     it; returns (wall, metrics, clusters.tsv bytes, recording, {kernel:
     launches in this run}). A run expected to fail (expect_rc != 0)
     returns None for the metrics and the clusters. `devices`, when
     given, are the run's shards (the subcommand called with them, as
-    the CLI calls it with every local card); K1's and K6's launches by
-    shard are then under "K1 by shard" and "K6 by shard". Every run must
+    the CLI calls it with every local card); the launches by shard of
+    BY_SHARD are then under "K1 by shard" and so on. Every run must
     launch K6 once a tile the card screened through the tile queue
-    (_check_k6)."""
+    (_check_k6), K7 once a pair-table batch and K8 once a grouped word
+    dispatch, and no plain verify on the card (_check_verify).
+    `keep_batches` keeps the pair-table batches' arguments in the
+    recording (rec["pt_args"])."""
     import torch
 
     from galah_tpu_torch.cli.main import build_parser, main
@@ -991,7 +1216,7 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
         torch.cuda.reset_peak_memory_stats()
         log(tag, f"device memory held before the run: "
                  f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB")
-        with _recording() as rec:
+        with _recording(keep_batches) as rec:
             t0 = time.perf_counter()
             if devices is None:
                 rc = main(argv)
@@ -1001,7 +1226,7 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
             wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         if devices is not None:
-            for k in ("K1", "K6"):
+            for k in BY_SHARD:
                 launches[f"{k} by shard"] = dict(sorted(
                     counters[k].per_shard.items()))
     finally:
@@ -1011,9 +1236,11 @@ def _run_cli(inputs, out_dir: str, tag: str, platform: str,
     _check_k6(tag, launches, rec["card_tiles"],
               indicator=env.get("GALAH_TPU_SCREEN") == "indicator")
     if rc:
+        _check_verify(tag, launches, rec, None)
         return wall, None, None, rec, launches
     with open(mjson) as f:
         run_metrics = json.load(f)
+    _check_verify(tag, launches, rec, run_metrics["counters"])
     with open(tsv, "rb") as f:
         clusters = f.read()
     return wall, run_metrics, clusters, rec, launches
@@ -1158,14 +1385,16 @@ def _check_overlapped(m: dict, phase: str) -> None:
 
 
 def phase_main_path(work: str, corpus: str, paths, fam_ids):
-    """The packed path, sketching on the card; returns (launches,
-    clusters.tsv bytes, candidate pairs)."""
+    """The packed path, sketching on the card; then its pair-table
+    batches replayed through K7 and the plain version (replay_k7).
+    Returns (launches, clusters.tsv bytes, candidate pairs, K7's
+    numbers)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from galah_tpu_torch.sketch.fracminhash import sketch_file_native
 
     wall, m, clusters, rec, launches = _run_cli(
-        ["-d", corpus, "-x", "fna"], work, "main", "gpu")
+        ["-d", corpus, "-x", "fna"], work, "main", "gpu", keep_batches=True)
     _log_run("main", wall, m, launches, rec)
     n_clusters = _families_exact(clusters, paths, fam_ids)
     tiles = m["counters"]["screen_tiles"]
@@ -1174,6 +1403,7 @@ def phase_main_path(work: str, corpus: str, paths, fam_ids):
     check(launches["K1"] >= tiles > 0,
           f"{launches['K1']} K1 launches for {tiles} tiles")
     check(launches["K5"] > 0, "K5 was never launched on the main path")
+    check(launches["K7"] > 0, "K7 was never launched on the main path")
     check(m["counters"].get("screen_rows_device_born") == len(paths),
           "the screen matrix was not built from device-born rows")
     _check_overlapped(m, "main")
@@ -1186,7 +1416,8 @@ def phase_main_path(work: str, corpus: str, paths, fam_ids):
 
     _check_device_sketches(rec, host, paths, "main")
     log("main", f"OK: {n_clusters} clusters, one per family")
-    return launches, clusters, rec["pairs"]
+    k7 = replay_k7("main", rec.pop("pt_args"))
+    return launches, clusters, rec["pairs"], k7
 
 
 def phase_popcount_path(work: str, corpus: str, main_tsv: bytes) -> int:
@@ -1360,15 +1591,16 @@ def _sorted_pairs(res):
 
 def phase_contig_path(work: str, path: str, names, fams):
     """--cluster-contigs --small-contigs over the contig corpus, with the
-    phases overlapped, then with GALAH_TPU_PIPELINE=0; returns the
-    overlapped run's launches, clusters.tsv bytes, tiles and candidate
-    pairs with their ANI (sorted by pair)."""
+    phases overlapped (its pair-table batches then replayed through K7
+    and the plain version, replay_k7), then with GALAH_TPU_PIPELINE=0;
+    returns the overlapped run's launches, clusters.tsv bytes, tiles,
+    candidate pairs with their ANI (sorted by pair) and K7's numbers."""
     import numpy as np
 
     from galah_tpu_torch.sketch.fracminhash import sketch_contigs_native
 
     wall, m, clusters, rec, launches = _run_cli(
-        _contig_inputs(path), work, "contigs", "gpu")
+        _contig_inputs(path), work, "contigs", "gpu", keep_batches=True)
     _log_run("contigs", wall, m, launches, rec)
     _check_overlapped(m, "contigs")
     first = m["counters"].get("screen_rows_at_first_dispatch")
@@ -1380,7 +1612,8 @@ def phase_contig_path(work: str, path: str, names, fams):
     check(n_clusters == CONTIG_CORPUS[0],
           f"{n_clusters} clusters, want {CONTIG_CORPUS[0]}")
     tiles = m["counters"]["screen_tiles"]
-    check(launches["K1"] >= tiles > 0 and launches["K5"] > 0,
+    check(launches["K1"] >= tiles > 0 and launches["K5"] > 0
+          and launches["K7"] > 0,
           f"contig path launches {launches} for {tiles} tiles")
     check(m["counters"].get("screen_rows_device_born") == len(names),
           "the screen matrix was not built from device-born rows")
@@ -1390,7 +1623,9 @@ def phase_contig_path(work: str, path: str, names, fams):
             path, params, threads=min(8, os.cpu_count() or 1)),
         names, "contigs")
     log("contigs", f"OK: {n_clusters} clusters, one per family; {tiles} "
-                   f"tiles, K1 {launches['K1']}, K5 {launches['K5']}")
+                   f"tiles, K1 {launches['K1']}, K5 {launches['K5']}, K7 "
+                   f"{launches['K7']}")
+    k7 = replay_k7("contigs", rec.pop("pt_args"))
     seq_wall, seq_m, seq_clusters, seq_rec, seq_launches = _run_cli(
         _contig_inputs(path), work, "contigs_sequential", "gpu",
         env={"GALAH_TPU_PIPELINE": "0"})
@@ -1409,7 +1644,7 @@ def phase_contig_path(work: str, path: str, names, fams):
     log("contigs", f"OK: GALAH_TPU_PIPELINE=0 gives the same {len(pp)} "
                    f"candidate pairs and clusters.tsv; wall {wall:.2f} s "
                    f"overlapped, {seq_wall:.2f} s sequential")
-    return launches, clusters, int(tiles), (pp, pa)
+    return launches, clusters, int(tiles), (pp, pa), k7
 
 
 def _logged_tiles(path: str) -> int:
@@ -1869,7 +2104,7 @@ def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
         _families_exact(clusters, contig_names, contig_fams)
         log("shards", f"{tag} OK: phase 9's {len(pp)} candidate pairs and "
                       f"ANI bit for bit, its clusters.tsv; wall {wall:.2f} s")
-        out[tag] = {k: launches[f"{k} by shard"] for k in ("K1", "K6")}
+        out[tag] = {k: launches[f"{k} by shard"] for k in BY_SHARD}
     _, inputs = _reference_inputs(work, "shards_reference", paths, fam_ids)
     wall, m, clusters, rec, launches = _run_cli(
         inputs, work, "shards_reference", "gpu", devices=devices)
@@ -1884,7 +2119,7 @@ def phase_shards(work: str, contig_path: str, contig_names, contig_fams,
     log("shards", f"reference OK: phase 7's {len(got.pairs)} pairs and ANI "
                   f"bit for bit, {n} clusters; K1 by shard "
                   f"{json.dumps(launches['K1 by shard'])}; wall {wall:.2f} s")
-    out["reference"] = {k: launches[f"{k} by shard"] for k in ("K1", "K6")}
+    out["reference"] = {k: launches[f"{k} by shard"] for k in BY_SHARD}
     return out
 
 
@@ -1985,18 +2220,22 @@ def phase_processes(work: str, corpus: str, paths, fam_ids, main_tsv: bytes,
 
 
 def _grouped_verify_times(sketches) -> dict:
-    """The grouped verify's two gathers on the card for the first
-    sketch's stream against R = GROUPED_REFS references: the corpus's
-    member bitmaps, then random ones (R distinct bitmaps, as R
-    representatives would be). Each width: word and bt
-    bit-identical, CUDA-event ms of each kernel and of the table build,
-    the rows and bytes each gathers, the function's byte bound (stream,
-    offsets and bitmaps read once, results written once) and its
-    gathers priced at the probe's row rates. Returns {R: numbers}."""
+    """The grouped verify on the card for the first sketch's stream
+    against R = GROUPED_REFS references: the corpus's member bitmaps,
+    then random ones (R distinct bitmaps, as R representatives would
+    be). Each width: the plain word version and bt bit-identical; K8
+    with the plain word version's AF and its ANI within K8_ANI_TOL, and
+    equal to itself over two calls; CUDA-event ms of K8 (a CUDA graph of
+    10 calls, and called one by one), of both plain versions and of the
+    table build, the rows and bytes each gathers, the function's byte
+    bound (stream, offsets and bitmaps read once, results written once)
+    and its gathers priced at the probe's row rates. Returns {R:
+    numbers}."""
     import numpy as np
     import torch
 
     from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.tools.gather_probe import time_ms
 
     dev = torch.device("cuda", 0)
     q = sketches[0]
@@ -2025,13 +2264,28 @@ def _grouped_verify_times(sketches) -> dict:
         rows = torch.arange(r, device=dev)
         rpad = max(32, 1 << (r - 1).bit_length())
         padded = torch.cat([stack[:r], stack.new_zeros((rpad - r, w))])
-        word = fa._forward_kernel(stack, rows, pc[:r], b, o, **kw)
+        word = fa._forward_plain(stack, rows, pc[:r], b, o, **kw)
         table = fa._bit_transpose_table(padded)
         bt = fa._forward_kernel_bt(table, pc[:r], b, o, **kw)
+        k8 = fa._forward_kernel(stack, rows, pc[:r], b, o, **kw)
+        k8_again = fa._forward_kernel(stack, rows, pc[:r], b, o, **kw)
         torch.cuda.synchronize()
         check(all(torch.equal(x, y) for x, y in zip(word, bt)),
-              f"grouped verify at R={r}: word and bt differ")
-        word_ms = _time_ms(lambda: fa._forward_kernel(
+              f"grouped verify at R={r}: plain word and bt differ")
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in zip(k8, k8_again)),
+              f"grouped verify at R={r}: K8 differs from itself")
+        check(torch.equal(k8[1], word[1]),
+              f"grouped verify at R={r}: K8's AF differs from the plain "
+              "version's")
+        dani = float((k8[0] - word[0]).abs().max())
+        check(dani <= K8_ANI_TOL,
+              f"grouped verify at R={r}: K8's ANI differs by {dani}")
+        k8_ms = time_ms(lambda: fa._forward_kernel(
+            stack, rows, pc[:r], b, o, **kw), dev, 10)
+        k8_eager_ms = _time_ms(lambda: fa._forward_kernel(
+            stack, rows, pc[:r], b, o, **kw), 10)
+        word_ms = _time_ms(lambda: fa._forward_plain(
             stack, rows, pc[:r], b, o, **kw), 10)
         bt_ms = _time_ms(lambda: fa._forward_kernel_bt(
             table, pc[:r], b, o, **kw), 10)
@@ -2039,6 +2293,8 @@ def _grouped_verify_times(sketches) -> dict:
         fn_bytes = 4 * (n + f + 1 + r * w + r + 2 * r)
         bound_ms, bound_by = _bound_ms(fn_bytes, r * n, INT_ALU_OPS_PER_S)
         rec = {"refs": r, "stream_hashes": n, "fragments": f,
+               "k8_ms": k8_ms, "k8_eager_ms": k8_eager_ms,
+               "k8_max_abs_ani_err": dani,
                "word_ms": word_ms, "bt_ms": bt_ms, "bt_table_ms": table_ms,
                "word_rows": r * n, "word_bytes": 4 * r * n,
                "bt_rows": n, "bt_bytes": 4 * (rpad // 32) * n,
@@ -2048,6 +2304,9 @@ def _grouped_verify_times(sketches) -> dict:
             rec[f"bt_gather_ms_{order}"] = n / rate * 1e3
         out[r] = rec
         log("large", f"grouped verify R={r} on {n} hashes ({f} fragments): "
+                     f"K8 {k8_ms:.4f} ms (a CUDA graph; {k8_eager_ms:.4f} "
+                     f"ms called one by one; max |dANI| {dani:.3g}, AF "
+                     f"equal, equal to itself); plain "
                      f"word {word_ms:.4f} ms ({r * n} rows, {4 * r * n} "
                      f"bytes gathered; {rec['word_gather_ms_ascending']:.4f} "
                      f"/ {rec['word_gather_ms_random']:.4f} ms at the probe's "
@@ -2056,8 +2315,8 @@ def _grouped_verify_times(sketches) -> dict:
                      f"{rec['bt_gather_ms_ascending']:.4f} / "
                      f"{rec['bt_gather_ms_random']:.4f} ms) + table "
                      f"{table_ms:.4f} ms; bound {bound_ms:.4f} ms "
-                     f"({bound_by}); bit-identical; {smi}")
-        del word, bt, table, padded
+                     f"({bound_by}); plain word and bt bit-identical; {smi}")
+        del word, bt, k8, k8_again, table, padded
     del stack
     torch.cuda.empty_cache()
     return out
@@ -2068,10 +2327,11 @@ def phase_large_genomes(work: str) -> dict:
     three times: GALAH_TPU_VERIFY_GATHER=word, =bt and unset (words).
     Every fragment stream must exceed GROUPED_MIN_HASHES (checked first,
     on the first run's device sketches), every verify must take the
-    grouped path, each run must find the families, and the three runs'
-    clusters.tsv, ANI and AF must be bit-identical; then the grouped
-    verify's times by width. Returns {"runs": {tag: counters},
-    "grouped": {R: numbers}}."""
+    grouped path, each run must find the families; the three runs'
+    clusters.tsv and AF must be identical, word's and unset's ANI (both
+    K8) bit-identical and bt's (the plain bt version) within K8_ANI_TOL
+    of them; then the grouped verify's times by width. Returns {"runs":
+    {tag: counters and K8's launches}, "grouped": {R: numbers}}."""
     import numpy as np
 
     from galah_tpu_torch.utils.synth import make_families
@@ -2121,10 +2381,15 @@ def phase_large_genomes(work: str) -> dict:
             check(clusters == first[0],
                   f"large {tag}: clusters.tsv differs from the word run's")
             check(verified.keys() == first[1].keys() and all(
-                np.array(verified[k], np.float64).tobytes()
-                == np.array(first[1][k], np.float64).tobytes()
-                for k in verified),
-                f"large {tag}: ANI or AF differ from the word run's")
+                verified[k][1:] == first[1][k][1:] for k in verified),
+                f"large {tag}: AF differs from the word run's")
+            dani = max(abs(verified[k][0] - first[1][k][0])
+                       for k in verified)
+            check(dani <= (K8_ANI_TOL if tag == "bt" else 0.0),
+                  f"large {tag}: ANI differs from the word run's by {dani}")
+        check(launches["K8"] == routes["word"] and (
+            launches["K8"] > 0 or tag == "bt"),
+            f"large {tag}: K8 {launches['K8']} launches, dispatches {routes}")
         log("large", f"{tag} OK: {n} clusters, {len(verified)} pairs "
                      f"verified, {int(c['verify_directed_grouped'])} directed "
                      f"on the grouped path, dispatches {routes}; wall "
@@ -2132,8 +2397,10 @@ def phase_large_genomes(work: str) -> dict:
                      f"; {nvidia_smi_line()}")
         runs[tag] = {"wall_s": wall, "phases_s": m["phases_s"],
                      "verify_directed_grouped": c["verify_directed_grouped"],
-                     "dispatches": routes}
-    log("large", "OK: ANI and AF bit-identical under word, bt and unset")
+                     "dispatches": routes, "K8": launches["K8"]}
+    log("large", "OK: AF and clusters.tsv identical under word, bt and "
+                 "unset; ANI bit-identical under word and unset (K8), bt "
+                 f"within {K8_ANI_TOL}")
     return {"runs": runs, "grouped": _grouped_verify_times(sketches)}
 
 
@@ -2149,12 +2416,18 @@ def _rank_run(tag: str, fn) -> dict:
     m = metrics.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = fn()
+    with _recording() as rec:
+        res = fn()
     wall = time.perf_counter() - t0
     c = m.counters
+    launches = {k: f.launches for k, f in counters.items()}
+    _check_verify(f"rank {tag}", launches, rec, c)
     return res, {
         "wall_s": wall,
-        "launches": {k: f.launches for k, f in counters.items()},
+        "launches": launches,
+        "pair_table_batches": rec["pt_batches"],
+        "verify_grouped_word_dispatches": c.get(
+            "verify_grouped_word_dispatches", 0),
         "genomes_sketched": c.get("genomes_sketched"),
         "contigs_sketched": c.get("contigs_sketched"),
         "sketch_exchange_bytes": c.get("sketch_exchange_bytes"),
@@ -2230,6 +2503,7 @@ def main() -> int:
     phase_build()
     kernels = phase_kernel()
     epilogue = phase_epilogue()
+    k7_edge_err = phase_k7_edges()
     gather = phase_gather()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build",
@@ -2239,16 +2513,16 @@ def main() -> int:
             work, CONTIG_CORPUS, "contigs")
         k5 = phase_sketch_kernel(paths, contig_path)
         with _one_card():
-            main_launches, main_tsv, main_pairs = phase_main_path(
+            main_launches, main_tsv, main_pairs, k7_main = phase_main_path(
                 work, corpus, paths, fam_ids)
             k2_launches = phase_popcount_path(work, corpus, main_tsv)
             ref_pairs = phase_reference(work, paths, fam_ids)
             phase_low_memory(work, paths, fam_ids)
             indicator = phase_indicator(work, corpus, paths, fam_ids,
                                         main_pairs, main_tsv, ref_pairs)
-            contig_launches, contig_tsv, contig_tiles, contig_pairs = (
-                phase_contig_path(work, contig_path, contig_names,
-                                  contig_fams))
+            (contig_launches, contig_tsv, contig_tiles, contig_pairs,
+             k7_contigs) = phase_contig_path(work, contig_path, contig_names,
+                                             contig_fams)
             resume = phase_resume(work)
             phase_surface(work, corpus, paths, fam_ids, main_tsv)
             phase_scale()
@@ -2261,6 +2535,8 @@ def main() -> int:
                                 contig_tsv, contig_tiles)["reports"]
         with _one_card():
             large = phase_large_genomes(work)
+    grouped = large["grouped"]
+    k8_summary = grouped[K8_SUMMARY_REFS]
     print(json.dumps({"device_programs": {
         "indicator_product": indicator,
         "grouped_verify": large["grouped"],
@@ -2330,6 +2606,49 @@ def main() -> int:
                 corpus_tag: [r[corpus_tag]["launches"]["K5"] for r in ranks]
                 for corpus_tag in ("main", "contigs")},
             **k5,
+        },
+        {
+            "name": "pair_table_verify",
+            "route": "cuda",
+            "source": "galah_tpu_torch/csrc/pair_table_verify.cu",
+            "replaces": "galah_tpu/ops/pair_table.py:193",
+            "launches": main_launches["K7"],
+            "launches_contig_path": contig_launches["K7"],
+            "launches_resume_path": {k: v["K7"] for k, v in resume.items()},
+            "launches_by_shard": {k: v["K7"] for k, v in shards.items()},
+            "launches_by_rank": {
+                corpus_tag: [r[corpus_tag]["launches"]["K7"] for r in ranks]
+                for corpus_tag in ("main", "contigs")},
+            "max_abs_err": max(k7_main["max_abs_err"],
+                               k7_contigs["max_abs_err"], k7_edge_err),
+            **{k: k7_main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+            "library_ms": None,
+            "main_batch": k7_main,
+            "contig_batch": k7_contigs,
+        },
+        {
+            "name": "grouped_verify",
+            "route": "cuda",
+            "source": "galah_tpu_torch/csrc/grouped_verify.cu",
+            "replaces": "galah_tpu/ops/fragment_ani.py:1023",
+            "launches": large["runs"]["word"]["K8"],
+            "launches_large_genome_runs": {
+                k: v["K8"] for k, v in large["runs"].items()},
+            "launches_main_path": main_launches["K8"],
+            "launches_contig_path": contig_launches["K8"],
+            "launches_by_shard": {k: v["K8"] for k, v in shards.items()},
+            "launches_by_rank": {
+                corpus_tag: [r[corpus_tag]["launches"]["K8"] for r in ranks]
+                for corpus_tag in ("main", "contigs")},
+            "max_abs_err": max(g["k8_max_abs_ani_err"]
+                               for g in grouped.values()),
+            "ms": k8_summary["k8_ms"],
+            "plain_ms": k8_summary["word_ms"],
+            "bound_ms": k8_summary["bound_ms"],
+            "bound_by": k8_summary["bound_by"],
+            "library_ms": None,
+            "refs": K8_SUMMARY_REFS,
         },
     ]}))
     print(info["nvidia_smi"])

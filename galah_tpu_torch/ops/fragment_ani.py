@@ -7,17 +7,21 @@ bit test); per-fragment shared-k-mer counts give per-fragment identity
 (corrected containment)^(1/k); a direction's ANI is the mean identity of
 aligned fragments and its AF the aligned share of usable fragments.
 
-Two kernels, both plain torch on the device:
+Two kernels:
 - the pair-table kernel (ops/pair_table.py) for pairs whose streams both
-  fit its budget: many directed pairs per batch;
+  fit its budget: many directed pairs per batch; on a card the
+  hand-written K7 (csrc/pair_table_verify.cu);
 - the grouped kernel: one query stream against many reference bitmaps,
   for pairs with a stream over the budget. It tests each stream bucket
   either with one bitmap word gathered per (reference, position)
-  (_forward_kernel) or with one row of a bucket-major bit-transposed
-  table gathered per position, which holds every reference's bit
-  (_forward_kernel_bt over _bit_transpose_table); GALAH_TPU_VERIFY_GATHER=bt
-  picks the second, words are the default (_verify_gather_mode), and the
-  results are bit-identical.
+  (_forward_kernel: on a card the hand-written K8, csrc/grouped_verify.cu;
+  on the CPU its plain version _forward_plain) or with one row of a
+  bucket-major bit-transposed table gathered per position, which holds
+  every reference's bit (_forward_kernel_bt over _bit_transpose_table,
+  plain torch on every device); GALAH_TPU_VERIFY_GATHER=bt picks the
+  second, words are the default (_verify_gather_mode). The plain word
+  version and bt give the same bits; K8 the same AF and an ANI within
+  float32 rounding of its identity sum.
 Routing is per undirected pair, so a pair's two directions never mix the
 two kernels' numerics (fixed-point vs float32 identity sums);
 GALAH_TPU_VERIFY=pairtable|grouped forces one kernel for every pair.
@@ -44,7 +48,7 @@ import functools
 import logging
 import os
 import time
-from collections import OrderedDict, defaultdict
+from collections import Counter, OrderedDict, defaultdict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -52,7 +56,12 @@ import numpy as np
 import torch
 
 from galah_tpu_torch import defaults
-from galah_tpu_torch.ops.pair_table import PairTableConfig, PairTableVerifier
+from galah_tpu_torch.ops.pair_table import (
+    PairTableConfig,
+    PairTableVerifier,
+    check_bits,
+    check_operands,
+)
 from galah_tpu_torch.parallel.mesh import process_count, process_index
 from galah_tpu_torch.sketch.fracminhash import NativeSketch
 from galah_tpu_torch.utils import metrics
@@ -106,8 +115,9 @@ def _verify_gather_mode() -> str:
     dispatches on an accelerator; here it is "word": on the H100
     (chip_smoke.py phase 16) bt's kernel beat word's only at 32
     references, by about 0.5 ms, and lost at 64 and 128, before the
-    0.35-1.36 ms its table takes each dispatch. Results are
-    bit-identical in both modes."""
+    0.35-1.36 ms its table takes each dispatch. Both modes give the
+    same AF, and on the CPU the same bits; on a card word's K8 sums
+    identities in another order than bt's torch.sum."""
     return "bt" if os.environ.get("GALAH_TPU_VERIFY_GATHER") == "bt" \
         else "word"
 
@@ -158,9 +168,82 @@ def _forward_kernel(
     k: int,
     min_hashes: int,
     min_ident: float,
+    shard: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One query's fragments against R reference bitmaps (word-gather
-    mode). Returns (ani_pct (R,), af (R,))."""
+    mode). Returns (ani_pct (R,), af (R,)). A CPU tensor takes the plain
+    version; a CUDA tensor launches K8 on the current stream or raises,
+    with no host sync. K8's counts and AF equal the plain version's; its
+    identity sum runs in another order than torch.sum, so its ANI may
+    differ in the last float32 bits. `shard` is where the launch is also
+    counted in `per_shard`."""
+    check_bits(bits)
+    if bitmaps.device.type == "cpu":
+        return _forward_plain(bitmaps, rows, popcounts, buckets, offsets,
+                              bits, k, min_hashes, min_ident)
+    if bitmaps.device.type != "cuda":
+        raise ValueError(f"unsupported device {bitmaps.device}")
+    check_operands((bitmaps, buckets, offsets), torch.int32)
+    check_operands((rows,), torch.int64)
+    check_operands((popcounts,), torch.float32)
+    if len({t.device for t in (bitmaps, rows, popcounts, buckets,
+                               offsets)}) != 1:
+        raise ValueError("the kernel's operands are on different devices")
+    if (rows.shape != popcounts.shape or rows.dim() != 1
+            or bitmaps.dim() != 2 or offsets.dim() != 1
+            or offsets.shape[0] < 1):
+        raise ValueError(
+            f"operands do not fit: rows {tuple(rows.shape)}, popcounts "
+            f"{tuple(popcounts.shape)}, bitmaps {tuple(bitmaps.shape)}, "
+            f"offsets {tuple(offsets.shape)}")
+    from galah_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    r = rows.shape[0]
+    frags = offsets.shape[0] - 1
+    dev = bitmaps.device
+    ani = torch.empty(r, dtype=torch.float32, device=dev)
+    af = torch.empty(r, dtype=torch.float32, device=dev)
+    words = lib.galah_grouped_verify_scratch_words(frags, r)
+    scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.galah_grouped_verify(
+            buckets.data_ptr(), offsets.data_ptr(), frags,
+            bitmaps.data_ptr(), bitmaps.shape[1], rows.data_ptr(),
+            popcounts.data_ptr(), r, 1.0 / bits, 1.0 / k, min_hashes,
+            min_ident, ani.data_ptr(), af.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"galah_grouped_verify launch failed: CUDA error {err} "
+            f"(references={r}, fragments={frags})")
+    _K8.launches += 1
+    if shard is not None:
+        _K8.per_shard[shard] += 1
+    return ani, af
+
+
+_forward_kernel.launches = 0
+_forward_kernel.per_shard = Counter()
+# The wrapper's own function object (as ops/pair_table.py's _K7).
+_K8 = _forward_kernel
+
+
+def _forward_plain(
+    bitmaps: torch.Tensor,
+    rows: torch.Tensor,
+    popcounts: torch.Tensor,
+    buckets: torch.Tensor,
+    offsets: torch.Tensor,
+    bits: int,
+    k: int,
+    min_hashes: int,
+    min_ident: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K8 (_forward_kernel's arguments): an (R, N)
+    word gather and bit test, per-fragment hits from one prefix sum, and
+    the epilogue. Returns (ani_pct (R,), af (R,))."""
     W = bitmaps.shape[1]
     M = offsets[1:] - offsets[:-1]
     word_idx = rows[:, None] * W + (buckets >> 5).long()[None, :]
@@ -217,7 +300,7 @@ def _forward_kernel_bt(
     G-word row gathered per stream position gives every reference's
     bit. The padding references past R are cut before the per-fragment
     counts, so the rest runs on the same (R, F) shapes as
-    _forward_kernel and gives the same bits. Returns (ani_pct (R,),
+    _forward_plain and gives the same bits. Returns (ani_pct (R,),
     af (R,))."""
     r = popcounts.shape[0]
     M = offsets[1:] - offsets[:-1]
@@ -792,7 +875,7 @@ class FragmentAniEngine:
                 rows, pc = pool.rows(keys)
                 ani, af = _forward_kernel(
                     pool.buffer, to_device(rows, dev), to_device(pc, dev),
-                    buckets, offsets, **kw)
+                    buckets, offsets, shard=shard, **kw)
                 metrics.current().count("verify_grouped_word_dispatches", 1)
             anis.append(ani)
             afs.append(af)

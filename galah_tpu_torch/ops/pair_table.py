@@ -1,32 +1,34 @@
 """Pair-table verify: many directed genome pairs per dispatch
 (counterpart of galah_tpu/ops/pair_table.py).
 
-A batch of directed (source, target) pairs is evaluated in one pass of
-plain torch on the device:
+A batch of directed (source, target) pairs is evaluated in one launch:
 
 - the batch's unique source fragment streams are read in place from the
   engine's stream arena (ops/fragment_ani.py::StreamArena), where
   device-born streams were adopted and host streams are uploaded once a
   residency; a stream too large for the arena, or every stream under
   GALAH_TPU_ARENA=0, is uploaded with the batch instead. Per-pair
-  descriptors map the flat (pair-duplicated) hash domain back onto
-  them, broadcast with repeat_interleave;
+  descriptors locate each pair's stream and fragments in them;
 - target membership bitmaps are rows of the engine's bitmap pool,
   read in place through per-pair row ids;
 - over several shards, batch i runs on shard i mod the shard count,
   with that shard's arena and pool;
-- per-fragment hit counts are differences of one prefix sum at the
-  fragment bounds; the containment/identity epilogue runs per fragment
-  and reduces per pair, with identities summed in 2^-14 fixed point
-  (exact integer prefix sums, half-to-even rounding), as the reference
-  does.
+- per fragment, the hits of its hashes in the target bitmap give the
+  corrected containment and identity; per pair, identities are summed
+  in 2^-14 fixed point (exact integer sums, half-to-even rounding), as
+  the reference does.
+
+On a CUDA tensor _pair_table_kernel launches the hand-written kernel
+csrc/pair_table_verify.cu (K7, one launch a batch); on a CPU tensor it
+runs the plain torch version, _pair_table_plain. Both give the same
+bits.
 """
 
 from __future__ import annotations
 
-from collections import defaultdict
+from collections import Counter, defaultdict
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,10 +71,111 @@ def _pair_table_kernel(
     k: int,
     min_hashes: int,
     min_ident: float,
+    shard: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (ani_pct (P,), af (P,)) float32 for the directed pairs."""
+    """Returns (ani_pct (P,), af (P,)) float32 for the directed pairs. A
+    CPU tensor takes the plain version; a CUDA tensor launches K7 on the
+    current stream or raises, with no host sync. `shard`, the verify
+    shard the batch went to, is where the launch is also counted in
+    `per_shard`."""
+    check_bits(bits)
     if n_flat_frags * _FX_ONE >= 1 << 31:
         raise ValueError("fixed-point identity sum would overflow int32")
+    if ustream.device.type == "cpu":
+        return _pair_table_plain(
+            ustream, ufrag_offsets, bitmaps, popcounts, pair_src_start,
+            pair_flat_start, pair_ufrag_start, pair_fragflat_start, pair_ref,
+            pair_row, n_flat, n_flat_frags, bits, k, min_hashes, min_ident)
+    if ustream.device.type != "cuda":
+        raise ValueError(f"unsupported device {ustream.device}")
+    check_operands(
+        (ustream, ufrag_offsets, bitmaps, pair_ufrag_start,
+         pair_fragflat_start), torch.int32)
+    check_operands((popcounts,), torch.float32)
+    check_operands((pair_ref, pair_row), torch.int64)
+    if len({t.device for t in (ustream, ufrag_offsets, bitmaps, popcounts,
+                               pair_ufrag_start, pair_fragflat_start,
+                               pair_ref, pair_row)}) != 1:
+        raise ValueError("the kernel's operands are on different devices")
+    P = pair_ufrag_start.shape[0]
+    if (bitmaps.dim() != 2 or pair_fragflat_start.shape != (P + 1,)
+            or pair_ref.shape != (P,) or pair_row.shape != (P,)):
+        raise ValueError(
+            f"descriptors of {P} pairs do not fit: pair_fragflat_start "
+            f"{tuple(pair_fragflat_start.shape)}, pair_ref "
+            f"{tuple(pair_ref.shape)}, pair_row {tuple(pair_row.shape)}, "
+            f"bitmaps {tuple(bitmaps.shape)}")
+    from galah_tpu_torch.ops._build import load_library
+
+    dev = ustream.device
+    ani = torch.empty(P, dtype=torch.float32, device=dev)
+    af = torch.empty(P, dtype=torch.float32, device=dev)
+    entry = load_library().galah_pair_table_verify
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(ustream.data_ptr(), ufrag_offsets.data_ptr(),
+                    bitmaps.data_ptr(), bitmaps.shape[1],
+                    popcounts.data_ptr(), pair_ufrag_start.data_ptr(),
+                    pair_fragflat_start.data_ptr(), pair_ref.data_ptr(),
+                    pair_row.data_ptr(), P, n_flat_frags, 1.0 / bits,
+                    1.0 / k, min_hashes, min_ident, ani.data_ptr(),
+                    af.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"galah_pair_table_verify launch failed: CUDA error {err} "
+            f"(pairs={P}, flat fragments={n_flat_frags})")
+    _K7.launches += 1
+    if shard is not None:
+        _K7.per_shard[shard] += 1
+    return ani, af
+
+
+_pair_table_kernel.launches = 0
+_pair_table_kernel.per_shard = Counter()
+# The wrapper's own function object, where its launches are counted even
+# when a caller replaces the module's name with a wrapper of its own (as
+# chip_smoke.py and tools/verify_profile.py do to record and time it).
+_K7 = _pair_table_kernel
+
+
+def check_bits(bits: int) -> None:
+    """What the verify kernels and their plain versions assume of the
+    bitmap width: a power of two, so that the card's multiply by 1 / bits
+    and the CPU's divide by bits give the same float32."""
+    if bits <= 0 or bits & (bits - 1):
+        raise ValueError(f"member bitmap of {bits} bits, not a power of two")
+
+
+def check_operands(tensors, dtype: torch.dtype) -> None:
+    """Every tensor of `dtype` and contiguous, as a kernel reads it."""
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"want {dtype} operands, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the kernel's operands must be contiguous")
+
+
+def _pair_table_plain(
+    ustream: torch.Tensor,              # (U,) int32 unique source streams
+    ufrag_offsets: torch.Tensor,        # (UF+1,) int32 global fragment offsets
+    bitmaps: torch.Tensor,              # (C, W) int32 bitmap rows (the pool)
+    popcounts: torch.Tensor,            # (G,) float32
+    pair_src_start: torch.Tensor,       # (P,) int32 stream start in ustream
+    pair_flat_start: torch.Tensor,      # (P+1,) int32 ascending flat-hash starts
+    pair_ufrag_start: torch.Tensor,     # (P,) int32 first fragment in ufrag_offsets
+    pair_fragflat_start: torch.Tensor,  # (P+1,) int32 ascending flat-fragment starts
+    pair_ref: torch.Tensor,             # (P,) int64 rows into popcounts
+    pair_row: torch.Tensor,             # (P,) int64 rows into bitmaps
+    n_flat: int,
+    n_flat_frags: int,
+    bits: int,
+    k: int,
+    min_hashes: int,
+    min_ident: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K7: (ani_pct (P,), af (P,)) float32 for
+    the directed pairs, over flat (pair-duplicated) hash and fragment
+    domains with prefix sums at their bounds."""
     dev = ustream.device
     P = pair_src_start.shape[0]
     W = bitmaps.shape[1]
@@ -236,7 +339,8 @@ class PairTableVerifier:
         if not batches:
             return {}
         shards = self._shards_fn()
-        outs = [self._dispatch(b, sketches_by_key, shards[i % len(shards)])
+        outs = [self._dispatch(b, sketches_by_key, shards[i % len(shards)],
+                               i % len(shards))
                 for i, b in enumerate(batches)]
         results: Dict[Tuple, Tuple[float, float]] = {}
         for sh in range(min(len(shards), len(batches))):
@@ -250,7 +354,8 @@ class PairTableVerifier:
                     o += 1
         return results
 
-    def _dispatch(self, batch: List[Tuple], sketches_by_key: Dict, shard):
+    def _dispatch(self, batch: List[Tuple], sketches_by_key: Dict, shard,
+                  shard_index: int):
         cfg = self.cfg
         dev = shard.device
         pool = shard.pool
@@ -301,6 +406,7 @@ class PairTableVerifier:
             bits=cfg.member_bits, k=cfg.k,
             min_hashes=cfg.min_fragment_hashes,
             min_ident=cfg.min_fragment_identity,
+            shard=shard_index,
         )
 
     def _streams(self, src_order: List, sketches_by_key: Dict, shard):

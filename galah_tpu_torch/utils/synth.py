@@ -6,6 +6,9 @@ expected clustering is known exactly.
 
 The port's own copy of galah_tpu/utils/synth.py, so that the port
 imports nothing of galah_tpu: same behaviour, file formats and numerics.
+It adds one thing of its own, pair_table_batch: the verify's pair-table
+batches, laid out as the stream arena and the bitmap pool hold them, on
+which the tests and chip_smoke.py hold K7 against its plain version.
 """
 
 from __future__ import annotations
@@ -280,3 +283,98 @@ def make_strains(
                 strain_ids.append(sid)
             sid += 1
     return paths, strain_ids
+
+
+# Per-fragment rates at which a target bitmap holds its parent source's
+# buckets: from none through the fragment identity cutoff's
+# neighbourhood (0.8^15 ~ 0.035) to all.
+PAIR_TABLE_KEEP = (0.0, 0.02, 0.035, 0.05, 0.3, 0.9, 1.0)
+
+
+def fragment_sources(rng: np.random.Generator, n: int, frags: int,
+                     sizes, bits: int) -> List[List[np.ndarray]]:
+    """n sources, each `frags` fragments of sorted int32 buckets below
+    `bits`, each fragment's size drawn from `sizes`."""
+    return [[np.sort(rng.integers(0, bits, rng.choice(sizes))).astype(
+        np.int32) for _ in range(frags)] for _ in range(n)]
+
+
+def target_bitmaps(rng: np.random.Generator, sources, g: int, bits: int,
+                   full: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """g target bitmaps: target t holds source t % len(sources)'s buckets
+    at a per-fragment rate from PAIR_TABLE_KEEP, over random background
+    bits of density 0.001-0.2; with `full`, the last target has every bit
+    but one set (1 - popcount / bits under the verify's 1e-6 clamp).
+    Returns (words (g, bits / 32) uint32, popcounts (g,) float32)."""
+    words = np.empty((g, bits // 32), np.uint32)
+    popc = np.empty(g, np.float32)
+    for t in range(g):
+        ind = rng.random(bits) < rng.uniform(0.001, 0.2)
+        for frag in sources[t % len(sources)]:
+            ind[frag[rng.random(len(frag))
+                     < rng.choice(PAIR_TABLE_KEEP)]] = True
+        if full and t == g - 1:
+            ind[:] = True
+            ind[rng.integers(0, bits)] = False
+        words[t] = np.packbits(ind, bitorder="little").view(np.uint32)
+        popc[t] = ind.sum()
+    return words, popc
+
+
+def pair_table_batch(seed: int, *, n_src: int, frags: int, sizes, g: int,
+                     pairs, bits: int, lead: int = 0,
+                     full: bool = False) -> dict:
+    """A pair-table batch as ops/pair_table.py::PairTableVerifier._dispatch
+    lays it out, made with numpy from `seed`: n_src sources of `frags`
+    fragments (fragment_sources) in one arena after `lead` junk hashes
+    and 0-4 between streams, so streams start at non-zero offsets; g
+    targets (target_bitmaps) in the rows of a pool of 2 g + 3 rows in
+    random order; `pairs` the directed (source, target) pairs. Returns
+    the arrays by the names pair_table_args passes on (pool uint32), and
+    n_flat and n_flat_frags."""
+    rng = np.random.default_rng(seed)
+    sources = fragment_sources(rng, n_src, frags, sizes, bits)
+    words, popc = target_bitmaps(rng, sources, g, bits, full)
+    parts = [rng.integers(0, bits, lead).astype(np.int32)]
+    offsets, first, start, pos = [], [], [], lead
+    for fr in sources:
+        start.append(pos)
+        first.append(len(offsets))
+        for f in fr:
+            offsets.append(pos)
+            parts.append(f)
+            pos += len(f)
+        offsets.append(pos)
+        parts.append(rng.integers(0, bits, int(rng.integers(0, 5))).astype(
+            np.int32))
+        pos += len(parts[-1])
+    rows = rng.permutation(2 * g + 3)[:g]
+    pool = np.zeros((2 * g + 3, bits // 32), np.uint32)
+    pool[rows] = words
+    pfs = np.concatenate([[0], np.cumsum(
+        [sum(len(f) for f in sources[s]) for s, _ in pairs])]).astype(np.int32)
+    pffs = np.concatenate([[0], np.cumsum(
+        [len(sources[s]) for s, _ in pairs])]).astype(np.int32)
+    pref = np.array([t for _, t in pairs], np.int64)
+    return dict(ustream=np.concatenate(parts),
+                ufrag_offsets=np.array(offsets, np.int32), pool=pool,
+                popcounts=popc,
+                psrc=np.array([start[s] for s, _ in pairs], np.int32),
+                pfs=pfs, puf=np.array([first[s] for s, _ in pairs], np.int32),
+                pffs=pffs, pref=pref, prow=rows[pref].astype(np.int64),
+                n_flat=int(pfs[-1]), n_flat_frags=int(pffs[-1]))
+
+
+_PAIR_TABLE_ARGS = ("ustream", "ufrag_offsets", "pool", "popcounts", "psrc",
+                    "pfs", "puf", "pffs", "pref", "prow")
+
+
+def pair_table_args(batch: dict, device) -> list:
+    """A pair_table_batch as the first twelve positional arguments of
+    ops/pair_table.py::_pair_table_kernel: its arrays as tensors on
+    `device` (the pool's words as int32), then n_flat and n_flat_frags."""
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(
+        batch[n].view(np.int32) if n == "pool" else batch[n])).to(device)
+        for n in _PAIR_TABLE_ARGS] + [batch["n_flat"], batch["n_flat_frags"]]

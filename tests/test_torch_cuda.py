@@ -908,8 +908,9 @@ def test_indicator_screens_on_card_match_cpu(cuda_device, monkeypatch, dtype):
 def test_bt_matches_word_on_a_large_stream(cuda_device):
     """The grouped verify's two gathers on a 1.25M-hash stream (sorted
     buckets within 3,000 fragments) against 32 references of 2^22 bits,
-    the first 16 holding 90% of the stream's buckets: bit-identical ANI
-    and AF."""
+    the first 16 holding 90% of the stream's buckets: the plain word
+    version and bt bit-identical in ANI and AF; K8 with the same AF and
+    ANI within 1e-4 percentage points."""
     from galah_tpu_torch.ops import fragment_ani as fa
     from galah_tpu_torch.utils.convert import words_to_torch
 
@@ -932,13 +933,16 @@ def test_bt_matches_word_on_a_large_stream(cuda_device):
     o = torch.from_numpy(offsets).to(cuda_device)
     kw = dict(bits=bits, k=15, min_hashes=8,
               min_ident=fa.FragmentAniConfig().min_fragment_identity)
-    word = fa._forward_kernel(bitmaps, torch.arange(r, device=cuda_device),
-                              popc, b, o, **kw)
+    rows = torch.arange(r, device=cuda_device)
+    word = fa._forward_plain(bitmaps, rows, popc, b, o, **kw)
     bt = fa._forward_kernel_bt(fa._bit_transpose_table(bitmaps), popc, b, o,
                                **kw)
     for w, t in zip(word, bt):
         assert torch.equal(w, t)
     assert (word[1][:16] > 0.9).all() and (word[1][16:] < 0.2).all()
+    k8 = fa._forward_kernel(bitmaps, rows, popc, b, o, **kw)
+    assert torch.equal(k8[1], word[1])
+    assert float((k8[0] - word[0]).abs().max()) <= 1e-4
 
 
 # ------------------------------------------------ K6 the screen epilogue
@@ -1153,3 +1157,241 @@ def test_indicator_screen_issue_never_syncs(cuda_device, monkeypatch, dtype):
     np.testing.assert_array_equal(got.ani_est.view(np.int32),
                                   want.ani_est.view(np.int32))
     assert len(want.pairs) > 1000
+
+
+# ------------------------------------------ K7 and K8, the verify kernels
+
+
+def _one_pair(device):
+    """A pair-table batch of one pair, one fragment of 300 hashes."""
+    from galah_tpu_torch.utils.synth import pair_table_args, pair_table_batch
+
+    return pair_table_args(pair_table_batch(
+        1, n_src=1, frags=1, sizes=(300,), g=1, pairs=[(0, 0)],
+        bits=1 << 16), device)
+
+
+_VERIFY_KW = dict(k=15, min_hashes=8, min_ident=0.8)
+
+
+@pytest.mark.parametrize("case", [
+    # (n_src, frags, sizes, g, pairs, bits, lead)
+    (4, 40, (100, 300, 400), 4, [(s, t) for s in range(4) for t in range(4)],
+     1 << 22, 0),
+    (6, 9, (0, 1, 7, 8, 9, 33, 700), 3,
+     [(0, 0), (0, 2), (3, 1), (5, 0), (1, 1), (2, 2), (5, 2), (4, 1)],
+     1 << 20, 999),
+    (1, 25, (40, 90), 5, [(0, t) for t in range(5)], 1 << 20, 3),
+    (1, 1, (300,), 1, [(0, 0)], 1 << 16, 17),
+    (300, 2, (30, 330, 700), 64, [(s, (s * 7 + j) % 64) for s in range(300)
+                                  for j in range(3)], 1 << 18, 5),
+], ids=["random", "ragged", "shared-source", "single-fragment", "contig-like"])
+def test_k7_matches_plain_version(cuda_device, case):
+    """K7 against _pair_table_plain on the card, bit for bit (where a
+    case has two targets or more, the last has every bit but one set)."""
+    from galah_tpu_torch.ops import pair_table as pt
+    from galah_tpu_torch.utils.synth import pair_table_args, pair_table_batch
+
+    n_src, frags, sizes, g, pairs, bits, lead = case
+    args = pair_table_args(pair_table_batch(
+        len(pairs), n_src=n_src, frags=frags, sizes=sizes, g=g, pairs=pairs,
+        bits=bits, lead=lead, full=g > 1), cuda_device)
+    before = pt._pair_table_kernel.launches
+    got = pt._pair_table_kernel(*args, bits=bits, **_VERIFY_KW)
+    want = pt._pair_table_plain(*args, bits=bits, **_VERIFY_KW)
+    torch.cuda.synchronize()
+    assert pt._pair_table_kernel.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert len(pairs) == 1 or (want[1] > 0.3).any()
+
+
+def test_k7_on_an_empty_batch(cuda_device):
+    from galah_tpu_torch.ops import pair_table as pt
+
+    z = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    e = z[:0]
+    ani, af = pt._pair_table_kernel(
+        z, z, torch.zeros((1, 8), dtype=torch.int32, device=cuda_device),
+        z.float(), e, z, e, z, e.long(), e.long(), 0, 0, bits=256,
+        **_VERIFY_KW)
+    assert ani.shape == af.shape == (0,)
+
+
+def _grouped_inputs(seed, refs, n, frags, bits, device):
+    """A query of n sorted-within-fragment buckets in `frags` fragments
+    (a few under min_hashes) against `refs` rows of a pool in random
+    order, the first half holding 60-100% of the query's buckets."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.integers(0, n, frags - 1))
+    offsets = np.concatenate([[0], cuts, [n]]).astype(np.int32)
+    buckets = rng.integers(0, bits, n).astype(np.int32)
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        buckets[lo:hi].sort()
+    ind = rng.random((refs, bits)) < 0.05
+    for r in range(refs // 2):
+        ind[r, buckets[rng.random(n) < rng.uniform(0.6, 1.0)]] = True
+    words = np.packbits(ind, axis=1, bitorder="little").view(np.int32)
+    rows = rng.permutation(refs + 5)[:refs]
+    pool = np.zeros((refs + 5, bits // 32), np.int32)
+    pool[rows] = words
+    t = [torch.from_numpy(a).to(device) for a in (
+        pool, rows.astype(np.int64), ind.sum(axis=1).astype(np.float32),
+        buckets, offsets)]
+    return t
+
+
+@pytest.mark.parametrize("refs,n,frags,bits", [
+    (8, 1_250_000, 3_333, 1 << 22),
+    (128, 200_000, 600, 1 << 22),
+    (3, 5_000, 40, 1 << 16),
+    (1, 300, 1, 1 << 16),
+])
+def test_k8_matches_plain_version(cuda_device, refs, n, frags, bits):
+    """K8 against _forward_plain on the card: AF equal, ANI within 1e-4
+    percentage points (its identity sum runs in another order than
+    torch.sum), and K8 equal to itself over two calls."""
+    from galah_tpu_torch.ops import fragment_ani as fa
+
+    args = _grouped_inputs(refs + n, refs, n, frags, bits, cuda_device)
+    before = fa._forward_kernel.launches
+    got = fa._forward_kernel(*args, bits=bits, **_VERIFY_KW)
+    again = fa._forward_kernel(*args, bits=bits, **_VERIFY_KW)
+    want = fa._forward_plain(*args, bits=bits, **_VERIFY_KW)
+    torch.cuda.synchronize()
+    assert fa._forward_kernel.launches == before + 2
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4
+    for x, y in zip(got, again):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert (want[1][:refs // 2] > 0.5).all()
+
+
+def test_k8_with_no_fragments(cuda_device):
+    from galah_tpu_torch.ops import fragment_ani as fa
+
+    pool = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
+    rows = torch.arange(2, device=cuda_device)
+    ani, af = fa._forward_kernel(
+        pool, rows, torch.ones(2, device=cuda_device),
+        torch.zeros(0, dtype=torch.int32, device=cuda_device),
+        torch.zeros(1, dtype=torch.int32, device=cuda_device), bits=256,
+        **_VERIFY_KW)
+    assert torch.equal(ani.cpu(), torch.zeros(2))
+    assert torch.equal(af.cpu(), torch.zeros(2))
+
+
+def test_k7_and_k8_count_their_launches_by_shard(cuda_device):
+    from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.ops import pair_table as pt
+
+    args = _one_pair(cuda_device)
+    grouped = _grouped_inputs(2, 3, 500, 4, 1 << 16, cuda_device)
+    for fn, a in ((pt._pair_table_kernel, args), (fa._forward_kernel,
+                                                  grouped)):
+        before = fn.launches
+        shard0, shard1 = fn.per_shard[0], fn.per_shard[1]
+        for shard in (0, 1, 1, None):
+            fn(*a, bits=1 << 16, shard=shard, **_VERIFY_KW)
+        assert fn.launches == before + 4
+        assert fn.per_shard[0] == shard0 + 1
+        assert fn.per_shard[1] == shard1 + 2
+
+
+def test_k7_and_k8_count_on_themselves_under_a_wrapped_name(cuda_device,
+                                                            monkeypatch):
+    """A caller that replaces the module's name with a wrapper (as the
+    smoke's recording does) still sees each launch counted on the
+    original function."""
+    from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.ops import pair_table as pt
+
+    args = _one_pair(cuda_device)
+    grouped = _grouped_inputs(2, 3, 500, 4, 1 << 16, cuda_device)
+    for mod, name, a in ((pt, "_pair_table_kernel", args),
+                         (fa, "_forward_kernel", grouped)):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *x, _f=real, **k: _f(*x, **k))
+        before = real.launches
+        getattr(mod, name)(*a, bits=1 << 16, shard=0, **_VERIFY_KW)
+        assert real.launches == before + 1
+
+
+@pytest.mark.parametrize("entry", ["galah_pair_table_verify",
+                                   "galah_grouped_verify"])
+def test_k7_and_k8_raise_on_a_failed_launch(cuda_device, monkeypatch, entry):
+    """A CUDA error from either entry raises with its code and counts no
+    launch: there is no fallback to the plain version."""
+    from types import SimpleNamespace
+
+    from galah_tpu_torch.ops import _build
+    from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.ops import pair_table as pt
+
+    monkeypatch.setattr(_build, "load_library", lambda: SimpleNamespace(
+        **{entry: lambda *args: 98,
+           "galah_grouped_verify_scratch_words": lambda f, r: 3 * f * r}))
+    if entry == "galah_pair_table_verify":
+        fn = pt._pair_table_kernel
+        args = _one_pair(cuda_device)
+    else:
+        fn = fa._forward_kernel
+        args = _grouped_inputs(2, 3, 500, 4, 1 << 16, cuda_device)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        fn(*args, bits=1 << 16, **_VERIFY_KW)
+    assert fn.launches == before
+
+
+def test_verify_issue_steps_never_sync(cuda_device, tmp_path, monkeypatch):
+    """A pair-table batch's dispatch (K7) and a grouped issue (K8) run
+    under sync debug mode "error" once their streams and bitmaps are
+    resident: neither waits for the card. Their results equal the same
+    engine's on the CPU (AF equal, ANI within 1e-3 percentage points)."""
+    from galah_tpu_torch.engines.native import _shrink_bits
+    from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.ops import pair_table as pt
+    from galah_tpu_torch.sketch.fracminhash import (
+        NativeSketchParams,
+        sketch_file_native,
+    )
+    from galah_tpu_torch.utils.synth import make_families
+
+    monkeypatch.setenv("GALAH_TPU_VERIFY_DEVICES", "1")
+    paths, _ = make_families(str(tmp_path / "g"), 2, 3, genome_length=60_000,
+                             seed=7)
+    params = _shrink_bits(NativeSketchParams(), 60_000)
+    sk = {p: sketch_file_native(p, params) for p in paths}
+    cfg = fa.FragmentAniConfig(k=params.k, member_bits=params.member_bits,
+                               min_fragment_hashes=params.min_fragment_hashes)
+    batch = [(a, b) for a in paths for b in paths if a != b]
+    out = {}
+    for dev in (CPU, cuda_device):
+        eng = fa.FragmentAniEngine(cfg, dev)
+        shard = eng.verify_shards()[0]
+
+        def issue():
+            return (eng.pair_table._dispatch(batch, sk, shard, 0),
+                    eng.one_to_many_issue(sk[paths[0]], paths[0],
+                                          [sk[p] for p in paths[1:]],
+                                          paths[1:]))
+
+        issue()                      # makes every stream and bitmap resident
+        if dev.type == "cuda":
+            k7, k8 = pt._pair_table_kernel.launches, fa._forward_kernel.launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = issue()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if dev.type == "cuda":
+            assert pt._pair_table_kernel.launches == k7 + 1
+            assert fa._forward_kernel.launches == k8 + 1
+        out[dev.type] = [t.cpu() for pair in got for t in pair]
+    cpu, gpu = out["cpu"], out["cuda"]
+    for i in (1, 3):                # the pair table's AF, the grouped AF
+        assert torch.equal(cpu[i], gpu[i]), i
+    for i in (0, 2):                # ANI, as test_verify_on_card_matches_cpu
+        assert float((cpu[i] - gpu[i]).abs().max()) <= 1e-3, i
+    assert (cpu[1] > 0.5).any()
