@@ -675,6 +675,38 @@ def _k7_bound(args, kw):
     return (*_bound_ms(nbytes, kw["n_flat"], INT_ALU_OPS_PER_S), nbytes)
 
 
+def _check_ascending(what: str, stream, offsets, frags=None) -> None:
+    """K7's and K8's precondition: the stream's buckets ascend within
+    each fragment (`frags`, indices into the offsets, or all of them),
+    counted on the card: a descent between positions i and i + 1 both
+    inside one fragment fails the check."""
+    import torch
+
+    lo = offsets[:-1].long()
+    hi = offsets[1:].long()
+    if frags is not None:
+        lo, hi = lo[frags], hi[frags]
+    n = stream.numel()
+    cum = torch.zeros(n + 1, dtype=torch.int64, device=stream.device)
+    if n > 1:
+        torch.cumsum((stream[1:] < stream[:-1]).long(), 0, out=cum[1:n])
+        cum[n] = cum[n - 1]
+    bad = int(((cum[torch.maximum(hi - 1, lo)] - cum[lo]) > 0).sum())
+    check(bad == 0, f"{what}: {bad} fragments do not ascend")
+
+
+def _check_batch_ascending(what: str, args) -> None:
+    """_check_ascending over the fragments a pair-table batch reads."""
+    import torch
+
+    ustream, uoffsets, puf, pffs = args[0], args[1], args[6], args[7]
+    counts = (pffs[1:] - pffs[:-1]).long()
+    first = torch.repeat_interleave(puf.long(), counts)
+    step = torch.arange(first.numel(), device=first.device) - \
+        torch.repeat_interleave(pffs[:-1].long(), counts)
+    _check_ascending(what, ustream, uoffsets, torch.unique(first + step))
+
+
 def _k7_compare(what: str, args, kw):
     """K7 and its plain version on one batch: equal on every bit of ANI
     and AF. Returns (the largest difference, 0.0; AF)."""
@@ -708,6 +740,7 @@ def replay_k7(tag: str, batches) -> dict:
     calls = [(a, {k: v for k, v in kw.items() if k != "shard"})
              for a, kw in batches]
     for i, (args, kw) in enumerate(calls):
+        _check_batch_ascending(f"K7 {tag} batch {i}", args)
         err = max(err, _k7_compare(f"{tag} batch {i}", args, kw)[0])
     args, kw = max(calls, key=lambda c: c[1]["n_flat"])
     dev = args[0].device
@@ -719,12 +752,15 @@ def replay_k7(tag: str, batches) -> dict:
            "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bound_bytes": nbytes,
            "pairs": int(args[6].shape[0]), "flat_hashes": kw["n_flat"],
-           "flat_fragments": kw["n_flat_frags"]}
-    log("k7", f"{tag}: {len(calls)} recorded batches through K7 and the "
-              f"plain version, bit-identical; the largest ({out['pairs']} "
+           "flat_fragments": kw["n_flat_frags"],
+           "tests_per_s": kw["n_flat"] / (ms * 1e-3)}
+    log("k7", f"{tag}: {len(calls)} recorded batches, each ascending within "
+              "its fragments, through K7 and the plain version, "
+              f"bit-identical; the largest ({out['pairs']} "
               f"pairs, {out['flat_hashes']} hashes, {out['flat_fragments']} "
               f"fragments): K7 {ms:.4f} ms (a CUDA graph; {eager_ms:.4f} ms "
-              f"called one by one), plain {plain_ms:.4f} ms, bound "
+              f"called one by one; {out['tests_per_s']:.4g} bit tests/s), "
+              f"plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.5f} ms ({bound_by}, {nbytes} bytes); "
               f"{nvidia_smi_line()}")
     torch.cuda.empty_cache()
@@ -1074,6 +1110,8 @@ def _recording(keep_batches: bool = False):
 
     def forward_kernel(bitmaps, *a, **k):
         rec["verify_dev"].add(bitmaps.device.type)
+        if bitmaps.device.type == "cuda":
+            _check_ascending("K8's stream", a[2], a[3])
         return orig[(fa, "_forward_kernel")](bitmaps, *a, **k)
 
     def forward_kernel_bt(table, *a, **k):
@@ -2244,6 +2282,7 @@ def _grouped_verify_times(sketches) -> dict:
     b = torch.from_numpy(np.asarray(q.frag_buckets, np.int32)).to(dev)
     o = torch.from_numpy(np.asarray(q.frag_offsets, np.int32)).to(dev)
     n, f = b.numel(), o.numel() - 1
+    _check_ascending("the grouped verify's stream", b, o)
     real = np.stack([s.member_bitmap_words() for s in sketches])
     rmax = max(GROUPED_REFS)
     gen = torch.Generator(device=dev)
@@ -2298,14 +2337,16 @@ def _grouped_verify_times(sketches) -> dict:
                "word_ms": word_ms, "bt_ms": bt_ms, "bt_table_ms": table_ms,
                "word_rows": r * n, "word_bytes": 4 * r * n,
                "bt_rows": n, "bt_bytes": 4 * (rpad // 32) * n,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "k8_tests_per_s": r * n / (k8_ms * 1e-3)}
         for order, rate in PROBE_ROWS_PER_S.items():
             rec[f"word_gather_ms_{order}"] = r * n / rate * 1e3
             rec[f"bt_gather_ms_{order}"] = n / rate * 1e3
         out[r] = rec
         log("large", f"grouped verify R={r} on {n} hashes ({f} fragments): "
                      f"K8 {k8_ms:.4f} ms (a CUDA graph; {k8_eager_ms:.4f} "
-                     f"ms called one by one; max |dANI| {dani:.3g}, AF "
+                     f"ms called one by one; {rec['k8_tests_per_s']:.4g} bit "
+                     f"tests/s; max |dANI| {dani:.3g}, AF "
                      f"equal, equal to itself); plain "
                      f"word {word_ms:.4f} ms ({r * n} rows, {4 * r * n} "
                      f"bytes gathered; {rec['word_gather_ms_ascending']:.4f} "

@@ -181,23 +181,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.galah_device_sketch.restype = ctypes.c_int
     # K7 (ustream, ufrag_offsets, pool, words, popcounts,
     # pair_ufrag_start, pair_fragflat_start, pair_ref, pair_row, pairs,
-    # flat_frags, inv_bits, inv_k, min_hashes, min_ident, ani, af, stream)
-    # returns a CUDA error code.
+    # flat_frags, cluster, slice_bits, smem, inv_bits, inv_k, min_hashes,
+    # min_ident, ani, af, stream) returns a CUDA error code.
     lib.galah_pair_table_verify.argtypes = [
         *[ctypes.c_void_p] * 3, ctypes.c_longlong, *[ctypes.c_void_p] * 5,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        *[ctypes.c_int] * 5, ctypes.c_float, ctypes.c_float,
         ctypes.c_int, ctypes.c_float, *[ctypes.c_void_p] * 3,
     ]
     lib.galah_pair_table_verify.restype = ctypes.c_int
     # K8 (buckets, offsets, frags, pool, words, rows, popcounts, refs,
-    # inv_bits, inv_k, min_hashes, min_ident, ani, af, scratch,
-    # scratch_words, stream) returns a CUDA error code; its scratch size
-    # (frags, refs) in int32 words.
+    # cluster, slice_bits, smem, inv_bits, inv_k, min_hashes, min_ident,
+    # ani, af, scratch, scratch_words, stream) returns a CUDA error code;
+    # its scratch size (frags, refs) in int32 words.
     lib.galah_grouped_verify.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-        *[ctypes.c_void_p] * 3, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_int] * 4, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_float, *[ctypes.c_void_p] * 3, ctypes.c_longlong,
+        ctypes.c_void_p,
     ]
     lib.galah_grouped_verify.restype = ctypes.c_int
     lib.galah_grouped_verify_scratch_words.argtypes = [ctypes.c_int] * 2

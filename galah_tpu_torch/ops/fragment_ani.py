@@ -61,6 +61,8 @@ from galah_tpu_torch.ops.pair_table import (
     PairTableVerifier,
     check_bits,
     check_operands,
+    check_rows,
+    verify_launch_plan,
 )
 from galah_tpu_torch.parallel.mesh import process_count, process_index
 from galah_tpu_torch.sketch.fracminhash import NativeSketch
@@ -173,10 +175,14 @@ def _forward_kernel(
     """One query's fragments against R reference bitmaps (word-gather
     mode). Returns (ani_pct (R,), af (R,)). A CPU tensor takes the plain
     version; a CUDA tensor launches K8 on the current stream or raises,
-    with no host sync. K8's counts and AF equal the plain version's; its
-    identity sum runs in another order than torch.sum, so its ANI may
-    differ in the last float32 bits. `shard` is where the launch is also
-    counted in `per_shard`."""
+    with no host sync. K8 holds each reference's row in shared memory
+    (ops/pair_table.py::verify_launch_plan) and requires what every
+    stream producer gives: buckets ascending within each fragment (the
+    plain version takes any order), and rows as check_rows says. K8's
+    counts and AF equal the plain version's; its identity sum runs in
+    another order than torch.sum, so its ANI may differ in the last
+    float32 bits. `shard` is where the launch is also counted in
+    `per_shard`."""
     check_bits(bits)
     if bitmaps.device.type == "cpu":
         return _forward_plain(bitmaps, rows, popcounts, buckets, offsets,
@@ -196,6 +202,8 @@ def _forward_kernel(
             f"operands do not fit: rows {tuple(rows.shape)}, popcounts "
             f"{tuple(popcounts.shape)}, bitmaps {tuple(bitmaps.shape)}, "
             f"offsets {tuple(offsets.shape)}")
+    plan = verify_launch_plan(bits)
+    check_rows(bitmaps, bits)
     from galah_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -211,13 +219,13 @@ def _forward_kernel(
         err = lib.galah_grouped_verify(
             buckets.data_ptr(), offsets.data_ptr(), frags,
             bitmaps.data_ptr(), bitmaps.shape[1], rows.data_ptr(),
-            popcounts.data_ptr(), r, 1.0 / bits, 1.0 / k, min_hashes,
-            min_ident, ani.data_ptr(), af.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), stream)
+            popcounts.data_ptr(), r, *plan, 1.0 / bits, 1.0 / k,
+            min_hashes, min_ident, ani.data_ptr(), af.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), stream)
     if err != 0:
         raise RuntimeError(
             f"galah_grouped_verify launch failed: CUDA error {err} "
-            f"(references={r}, fragments={frags})")
+            f"(references={r}, fragments={frags}, {plan})")
     _K8.launches += 1
     if shard is not None:
         _K8.per_shard[shard] += 1

@@ -19,16 +19,18 @@ A batch of directed (source, target) pairs is evaluated in one launch:
   the reference does.
 
 On a CUDA tensor _pair_table_kernel launches the hand-written kernel
-csrc/pair_table_verify.cu (K7, one launch a batch); on a CPU tensor it
-runs the plain torch version, _pair_table_plain. Both give the same
-bits.
+csrc/pair_table_verify.cu (K7, one launch a batch), which stages each
+pair's target row in shared memory over a thread-block cluster when the
+row is over 2^20 bits (verify_launch_plan), and reads a smaller row
+through L1; on a CPU tensor it runs the plain torch version,
+_pair_table_plain. Both give the same bits.
 """
 
 from __future__ import annotations
 
 from collections import Counter, defaultdict
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,9 +77,11 @@ def _pair_table_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (ani_pct (P,), af (P,)) float32 for the directed pairs. A
     CPU tensor takes the plain version; a CUDA tensor launches K7 on the
-    current stream or raises, with no host sync. `shard`, the verify
-    shard the batch went to, is where the launch is also counted in
-    `per_shard`."""
+    current stream or raises, with no host sync. K7 requires what every
+    stream producer gives: buckets ascending within each fragment (the
+    plain version takes any order), rows of exactly `bits` bits and a
+    pool aligned to 16 bytes (check_rows). `shard`, the verify shard the
+    batch went to, is where the launch is also counted in `per_shard`."""
     check_bits(bits)
     if n_flat_frags * _FX_ONE >= 1 << 31:
         raise ValueError("fixed-point identity sum would overflow int32")
@@ -105,6 +109,8 @@ def _pair_table_kernel(
             f"{tuple(pair_fragflat_start.shape)}, pair_ref "
             f"{tuple(pair_ref.shape)}, pair_row {tuple(pair_row.shape)}, "
             f"bitmaps {tuple(bitmaps.shape)}")
+    plan = verify_launch_plan(bits)
+    check_rows(bitmaps, bits)
     from galah_tpu_torch.ops._build import load_library
 
     dev = ustream.device
@@ -117,13 +123,13 @@ def _pair_table_kernel(
                     bitmaps.data_ptr(), bitmaps.shape[1],
                     popcounts.data_ptr(), pair_ufrag_start.data_ptr(),
                     pair_fragflat_start.data_ptr(), pair_ref.data_ptr(),
-                    pair_row.data_ptr(), P, n_flat_frags, 1.0 / bits,
+                    pair_row.data_ptr(), P, n_flat_frags, *plan, 1.0 / bits,
                     1.0 / k, min_hashes, min_ident, ani.data_ptr(),
                     af.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"galah_pair_table_verify launch failed: CUDA error {err} "
-            f"(pairs={P}, flat fragments={n_flat_frags})")
+            f"(pairs={P}, flat fragments={n_flat_frags}, {plan})")
     _K7.launches += 1
     if shard is not None:
         _K7.per_shard[shard] += 1
@@ -144,6 +150,50 @@ def check_bits(bits: int) -> None:
     and the CPU's divide by bits give the same float32."""
     if bits <= 0 or bits & (bits - 1):
         raise ValueError(f"member bitmap of {bits} bits, not a power of two")
+
+
+# A block holds at most 2^20 bits of a row (128 KiB of its 227 KB of
+# shared memory); a cluster of up to 4 blocks holds a row of up to 2^22
+# bits, the widest the sketch parameters give (engines/native.py::
+# _shrink_bits never widens past the defaults). The narrowest row is one
+# 16-byte bulk copy.
+MAX_SLICE_BITS = 1 << 20
+MAX_ROW_BITS = 1 << 22
+MIN_ROW_BITS = 1 << 7
+
+
+class VerifyPlan(NamedTuple):
+    """How K7 and K8 hold a bitmap row of `bits` bits on chip, in the
+    order their C entries take it."""
+
+    cluster: int      # blocks of the thread-block cluster that holds a row
+    slice_bits: int   # bits of the row each of them holds
+    smem_bytes: int   # its dynamic shared memory (the slice)
+
+
+def verify_launch_plan(bits: int) -> VerifyPlan:
+    """K7's and K8's launch plan for rows of `bits` bits: one block up
+    to 2^20 bits (K7 then reads the row through L1), then a cluster of
+    bits / 2^20 blocks of 128 KiB each. Raises ValueError for a width
+    they do not take."""
+    check_bits(bits)
+    if not MIN_ROW_BITS <= bits <= MAX_ROW_BITS:
+        raise ValueError(
+            f"member bitmap of {bits} bits: the verify kernels take "
+            f"{MIN_ROW_BITS} to {MAX_ROW_BITS} bits")
+    cluster = max(1, bits // MAX_SLICE_BITS)
+    slice_bits = bits // cluster
+    return VerifyPlan(cluster, slice_bits, slice_bits // 8)
+
+
+def check_rows(bitmaps: torch.Tensor, bits: int) -> None:
+    """What the kernels' bulk copies need of the bitmap rows: rows of
+    exactly `bits` bits, from an address aligned to 16 bytes."""
+    if bitmaps.shape[1] * 32 != bits:
+        raise ValueError(f"bitmap rows of {bitmaps.shape[1]} words for "
+                         f"{bits} bits")
+    if bitmaps.data_ptr() % 16:
+        raise ValueError("the bitmap rows must start 16-byte aligned")
 
 
 def check_operands(tensors, dtype: torch.dtype) -> None:

@@ -1,7 +1,9 @@
-"""Where the pair-table verify's time goes, batch by batch, on a card.
+"""Where the pair-table verify's time goes, batch by batch, on a card;
+and the verify kernels K7 and K8 alone at the main path's shapes.
 
     python -m galah_tpu_torch.tools.verify_profile [--corpus main|contigs]
         [--seed S] [--out DIR]
+    python -m galah_tpu_torch.tools.verify_profile --kernels [--seed S]
 
 Synthetic sketches from --seed, at the shapes of chip_smoke.py's two
 corpora (both by default): "main" is 128 families of 8 genomes of 1 Mb,
@@ -28,11 +30,25 @@ resident after a warm-up run, as the pipelined CLI leaves them):
   wall, as a JSON line, and key_averages tables under --out
   (verify_profile_<corpus>.txt).
 
+With --kernels, instead: K7 on the largest batch of each corpus's run
+(recorded from the engine's pair table), and on the largest batch at
+each of NARROW_PRESETS' widths, 2^18 and 2^20 bits, where the launch plan
+reads the row through L1: there also through the kernel that stages it
+(a cluster of 2 blocks, each holding half the row, the narrowest plan
+that runs that kernel); and K8 on one large genome's
+stream (GROUPED_SHAPE: 3,333 fragments of 375 sorted buckets, the shape
+of chip_smoke.py phase 16's 10 Mb genomes) against R = 8, 32, 64 and 128
+rows of 2^22 bits, half of them holding the stream. Each is checked
+against its plain version first (K7 bit for bit; K8's AF equal, its ANI
+within 1e-4 percentage points), then timed with CUDA events over a CUDA
+graph of calls; tests/s is the bit tests of the call (flat hashes, or R
+x N) over its time.
+
 It drives only what the package names in both its current and earlier
-layouts, so the same file times an earlier tree of the port too. The
-last lines are the card's name and power limit as nvidia-smi prints
-them and one JSON object. Needs a CUDA device: there is nothing to time
-on the CPU.
+layouts, so the same file times an earlier tree of the port too (there
+without the staged timings at 2^18 and 2^20). The last lines are the card's name and power limit as
+nvidia-smi prints them and one JSON object. Needs a CUDA device: there
+is nothing to time on the CPU.
 """
 
 from __future__ import annotations
@@ -56,6 +72,16 @@ PRESETS = {
 # Share of a family's buckets each member keeps: 0.98^15, the k-mers
 # that survive 2% divergence at k = 15.
 KEEP = 0.74
+# Genomes whose rows engines/native.py::_shrink_bits makes 2^18 bits
+# (8 kb viruses: 1,000 hashes in 3 fragments) and 2^20 bits (30 kb
+# phages: 3,750 hashes in 10 fragments), for K7 alone.
+NARROW_PRESETS = {
+    "2^18": (128, 8, 1_000, 3, 1 << 18),
+    "2^20": (128, 8, 3_750, 10, 1 << 20),
+}
+# K8's stream: (fragments, buckets a fragment, member bits), and its widths.
+GROUPED_SHAPE = (3_333, 375, 1 << 22)
+GROUPED_REFS = (8, 32, 64, 128)
 
 
 def synthetic_sketches(families: int, members: int, hashes: int,
@@ -212,22 +238,161 @@ def profile_corpus(corpus: str, shape: Sequence[int], seed: int,
     return result
 
 
+def largest_batch(engine, pairs, sketches):
+    """(args, kwargs) of _pair_table_kernel's call with the most flat
+    hashes in one PairTableVerifier.run (its shard dropped)."""
+    from galah_tpu_torch.ops import pair_table as pt
+
+    calls = []
+    real = pt._pair_table_kernel
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    pt._pair_table_kernel = record
+    try:
+        engine.pair_table.run(pairs, sketches)
+    finally:
+        pt._pair_table_kernel = real
+    args, kw = max(calls, key=lambda c: c[1]["n_flat"])
+    return args, {k: v for k, v in kw.items() if k != "shard"}
+
+
+def time_k7(args, kw, device: torch.device, plan=None) -> dict:
+    """K7 on one batch: bit for bit against the plain version, then ms
+    over a CUDA graph of 20 calls; with `plan`, a VerifyPlan, launched
+    by that plan instead of verify_launch_plan's."""
+    from galah_tpu_torch.ops import pair_table as pt
+
+    if plan is None:
+        return _time_k7(args, kw, device)
+    planned = pt.verify_launch_plan
+    pt.verify_launch_plan = lambda bits: plan
+    try:
+        return dict(_time_k7(args, kw, device), plan=list(plan))
+    finally:
+        pt.verify_launch_plan = planned
+
+
+def _time_k7(args, kw, device: torch.device) -> dict:
+    from galah_tpu_torch.ops import pair_table as pt
+    from galah_tpu_torch.tools.gather_probe import time_ms
+
+    got = pt._pair_table_kernel(*args, **kw)
+    want = pt._pair_table_plain(*args, **kw)
+    if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(got, want)):
+        raise RuntimeError("K7 differs from its plain version")
+    ms = time_ms(lambda: pt._pair_table_kernel(*args, **kw), device, 20)
+    return {"pairs": int(args[4].shape[0]), "flat_hashes": kw["n_flat"],
+            "flat_fragments": kw["n_flat_frags"], "bits": kw["bits"],
+            "ms": ms, "tests_per_s": kw["n_flat"] / (ms * 1e-3)}
+
+
+def grouped_inputs(refs: int, seed: int, device: torch.device):
+    """(bitmaps, rows, popcounts, buckets, offsets) for K8 at
+    GROUPED_SHAPE: random rows of density 1/4, the first half of them
+    with every bucket of the stream set."""
+    frags, per, bits = GROUPED_SHAPE
+    rng = np.random.default_rng(seed)
+    buckets = np.sort(rng.integers(0, bits, (frags, per), dtype=np.int32),
+                      axis=1).reshape(-1)
+    b = torch.from_numpy(buckets).to(device)
+    o = torch.arange(0, frags * per + 1, per, dtype=torch.int32,
+                     device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def words(n):
+        return torch.randint(-(1 << 31), 1 << 31, (n, bits // 32),
+                             generator=gen, dtype=torch.int64,
+                             device=device).to(torch.int32)
+
+    stack = words(refs) & words(refs)
+    ub = torch.unique(b).long()
+    held = torch.zeros(bits // 32, dtype=torch.int64, device=device)
+    held.index_add_(0, ub >> 5, torch.ones_like(ub) << (ub & 31))
+    stack[:refs // 2] |= held.to(torch.int32)
+    popcounts = torch.full((refs,), bits / 4, dtype=torch.float32,
+                           device=device)
+    rows = torch.arange(refs, device=device)
+    return stack, rows, popcounts, b, o
+
+
+def time_k8(refs: int, seed: int, device: torch.device) -> dict:
+    """K8 at R = refs: its AF equal to the plain version's and its ANI
+    within 1e-4 percentage points, then ms over a CUDA graph of 10
+    calls."""
+    from galah_tpu_torch.ops import fragment_ani as fa
+    from galah_tpu_torch.tools.gather_probe import time_ms
+
+    args = grouped_inputs(refs, seed, device)
+    bits = GROUPED_SHAPE[2]
+    kw = dict(bits=bits, k=15, min_hashes=8,
+              min_ident=fa.FragmentAniConfig().min_fragment_identity)
+    got = fa._forward_kernel(*args, **kw)
+    want = fa._forward_plain(*args, **kw)
+    dani = float((got[0] - want[0]).abs().max())
+    if not torch.equal(got[1], want[1]) or dani > 1e-4:
+        raise RuntimeError(f"K8 at R={refs} differs from its plain version")
+    ms = time_ms(lambda: fa._forward_kernel(*args, **kw), device, 10)
+    n = args[3].numel()
+    return {"refs": refs, "stream_hashes": n,
+            "fragments": args[4].numel() - 1, "bits": bits, "ms": ms,
+            "max_abs_ani_err": dani, "tests_per_s": refs * n / (ms * 1e-3)}
+
+
+def kernel_times(seed: int, device: torch.device) -> dict:
+    """K7 on each corpus's largest batch and at NARROW_PRESETS' widths,
+    and K8 at GROUPED_REFS."""
+    from galah_tpu_torch.ops import pair_table as pt
+
+    out = {}
+    presets = {**{c: PRESETS[c] for c in ("main", "contigs")},
+               **NARROW_PRESETS}
+    for corpus, shape in presets.items():
+        sketches, pairs = synthetic_sketches(*shape, seed=seed)
+        engine = _engine(sketches, device)
+        args, kw = largest_batch(engine, pairs, sketches)
+        runs = {f"K7 {corpus}": None}
+        if corpus in NARROW_PRESETS and hasattr(pt, "verify_launch_plan"):
+            bits = shape[4]
+            runs[f"K7 {corpus} staged"] = pt.VerifyPlan(2, bits // 2,
+                                                        bits // 16)
+        for name, plan in runs.items():
+            out[name] = time_k7(args, kw, device, plan)
+            print(f"{name}: " + json.dumps(out[name]), flush=True)
+        del engine, args, sketches
+        torch.cuda.empty_cache()
+    for r in GROUPED_REFS:
+        out[f"K8 R={r}"] = time_k8(r, seed, device)
+        print(f"K8 R={r}: " + json.dumps(out[f"K8 R={r}"]), flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: List[str] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus", choices=sorted(PRESETS), action="append")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/verify_profile")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time K7 and K8 alone instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("verify_profile: no CUDA device", file=sys.stderr)
         return 1
-    os.makedirs(args.out, exist_ok=True)
     device = torch.device("cuda", 0)
-    results = []
-    for corpus in args.corpus or sorted(PRESETS):
-        results.append(profile_corpus(corpus, PRESETS[corpus], args.seed,
-                                      device, args.out))
-        torch.cuda.empty_cache()
+    if args.kernels:
+        results = {"kernels": kernel_times(args.seed, device)}
+    else:
+        os.makedirs(args.out, exist_ok=True)
+        results = []
+        for corpus in args.corpus or sorted(PRESETS):
+            results.append(profile_corpus(corpus, PRESETS[corpus],
+                                          args.seed, device, args.out))
+            torch.cuda.empty_cache()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1174,6 +1174,48 @@ def _one_pair(device):
 _VERIFY_KW = dict(k=15, min_hashes=8, min_ident=0.8)
 
 
+def _slice_edges(rng, bits, size):
+    """Three sorted fragments of `size` buckets below `bits` for the
+    slices of K7's and K8's launch plan: the first holds each slice's
+    first two and last two buckets (hashes on both sides of every slice
+    boundary, and of the row's ends), the second lies wholly in the
+    second slice (or the first, for a row of one), the third wholly in
+    the last."""
+    from galah_tpu_torch.ops.pair_table import verify_launch_plan
+
+    plan = verify_launch_plan(bits)
+    sb = plan.slice_bits
+    edges = np.unique(np.concatenate(
+        [[k * sb - 2, k * sb - 1, k * sb, k * sb + 1]
+         for k in range(plan.cluster + 1)]).clip(0, bits - 1))
+    fill = rng.integers(0, bits, size - len(edges))
+    inner = min(1, plan.cluster - 1) * sb
+    return [np.sort(np.concatenate([edges, fill])).astype(np.int32),
+            np.sort(rng.integers(inner, inner + sb, size)).astype(np.int32),
+            np.sort(rng.integers(bits - sb, bits, size)).astype(np.int32)]
+
+
+def _edge_pair_batch(seed, bits):
+    """A pair_table_batch of 2 sources and 2 targets whose first
+    source's first three fragments are _slice_edges, with the targets'
+    bits set on both sides of each boundary (popcounts recounted)."""
+    from galah_tpu_torch.utils.synth import pair_table_batch
+
+    b = pair_table_batch(seed, n_src=2, frags=6, sizes=(40,), g=2,
+                         pairs=[(0, 0), (0, 1), (1, 0), (1, 1)], bits=bits)
+    rng = np.random.default_rng(seed)
+    off = b["ufrag_offsets"]
+    for f, frag in enumerate(_slice_edges(rng, bits, 40)):
+        b["ustream"][off[f]:off[f + 1]] = frag
+    row_of = dict(zip(b["pref"].tolist(), b["prow"].tolist()))
+    for t, row in row_of.items():
+        mine = b["ustream"][off[0]:off[3]][t::2].astype(np.int64)
+        np.bitwise_or.at(b["pool"][row], mine >> 5,
+                         (1 << (mine & 31)).astype(np.uint32))
+        b["popcounts"][t] = np.unpackbits(b["pool"][row].view(np.uint8)).sum()
+    return b
+
+
 @pytest.mark.parametrize("case", [
     # (n_src, frags, sizes, g, pairs, bits, lead)
     (4, 40, (100, 300, 400), 4, [(s, t) for s in range(4) for t in range(4)],
@@ -1185,17 +1227,40 @@ _VERIFY_KW = dict(k=15, min_hashes=8, min_ident=0.8)
     (1, 1, (300,), 1, [(0, 0)], 1 << 16, 17),
     (300, 2, (30, 330, 700), 64, [(s, (s * 7 + j) % 64) for s in range(300)
                                   for j in range(3)], 1 << 18, 5),
-], ids=["random", "ragged", "shared-source", "single-fragment", "contig-like"])
+    (3, 30, (20, 200), 3, [(s, t) for s in range(3) for t in range(3)],
+     1 << 17, 1),
+    (3, 40, (100, 400, 1100), 3, [(s, t) for s in range(3) for t in range(3)],
+     1 << 21, 2),
+    (512, 1, (5, 20, 60), 8, [(s, (s + j) % 8) for s in range(512)
+                              for j in range(8)], 1 << 22, 4),
+    (64, 2, (8, 30), 64, [(s, t) for s in range(64) for t in range(64)],
+     1 << 16, 9),
+    (5, 4, (0, 9, 500, 1300), 7, [(s % 5, (s * 3) % 7) for s in range(23)],
+     1 << 16, 11),
+    "edges 2^20", "edges 2^21", "edges 2^22",
+], ids=["random", "ragged", "shared-source", "single-fragment", "contig-like",
+        "width-2^17", "width-2^21", "max-pairs-2^22", "max-pairs-2^16",
+        "alternating-sources-2^16", "slice-edges-2^20", "slice-edges-2^21",
+        "slice-edges-2^22"])
 def test_k7_matches_plain_version(cuda_device, case):
-    """K7 against _pair_table_plain on the card, bit for bit (where a
-    case has two targets or more, the last has every bit but one set)."""
+    """K7 against _pair_table_plain on the card, bit for bit, at every
+    row width the widen rule picks (2^16 to 2^22): where a case has two
+    targets or more, the last has every bit but one set; the edge cases
+    put hashes on both sides of every slice boundary and fragments wholly
+    in one slice; two batches hold max_pairs pairs; one batch alternates
+    sources between neighbouring pairs."""
     from galah_tpu_torch.ops import pair_table as pt
     from galah_tpu_torch.utils.synth import pair_table_args, pair_table_batch
 
-    n_src, frags, sizes, g, pairs, bits, lead = case
-    args = pair_table_args(pair_table_batch(
-        len(pairs), n_src=n_src, frags=frags, sizes=sizes, g=g, pairs=pairs,
-        bits=bits, lead=lead, full=g > 1), cuda_device)
+    if isinstance(case, str):
+        bits = 1 << int(case.split("^")[1])
+        pairs = [0] * 4
+        args = pair_table_args(_edge_pair_batch(bits, bits), cuda_device)
+    else:
+        n_src, frags, sizes, g, pairs, bits, lead = case
+        args = pair_table_args(pair_table_batch(
+            len(pairs), n_src=n_src, frags=frags, sizes=sizes, g=g,
+            pairs=pairs, bits=bits, lead=lead, full=g > 1), cuda_device)
     before = pt._pair_table_kernel.launches
     got = pt._pair_table_kernel(*args, bits=bits, **_VERIFY_KW)
     want = pt._pair_table_plain(*args, bits=bits, **_VERIFY_KW)
@@ -1218,42 +1283,78 @@ def test_k7_on_an_empty_batch(cuda_device):
     assert ani.shape == af.shape == (0,)
 
 
-def _grouped_inputs(seed, refs, n, frags, bits, device):
-    """A query of n sorted-within-fragment buckets in `frags` fragments
-    (a few under min_hashes) against `refs` rows of a pool in random
-    order, the first half holding 60-100% of the query's buckets."""
+def _popcounts(words):
+    """float32 popcount of each row of int32 words."""
+    x = words.long() & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum(dim=1).float()
+
+
+def _grouped_inputs(seed, refs, n, frags, bits, device, edges=False):
+    """A query of n buckets, sorted within each of `frags` fragments (a
+    few under min_hashes; with `edges` the first three are _slice_edges
+    of 40), against `refs` rows of a pool in random order: random bits
+    of density 1/8 and, in the first half of the rows, 60-100% of the
+    query's buckets. Made with numpy and a torch generator from `seed`,
+    the rows on the card."""
     rng = np.random.default_rng(seed)
-    cuts = np.sort(rng.integers(0, n, frags - 1))
-    offsets = np.concatenate([[0], cuts, [n]]).astype(np.int32)
+    lead = [40, 80, 120] if edges else []
+    cuts = np.sort(rng.integers(lead[-1] if edges else 0, n,
+                                frags - 1 - len(lead)))
+    offsets = np.concatenate([[0], lead, cuts, [n]]).astype(np.int32)
     buckets = rng.integers(0, bits, n).astype(np.int32)
+    if edges:
+        buckets[:120] = np.concatenate(_slice_edges(rng, bits, 40))
     for lo, hi in zip(offsets[:-1], offsets[1:]):
         buckets[lo:hi].sort()
-    ind = rng.random((refs, bits)) < 0.05
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    words = [_random_words(gen, (refs, bits // 32), device) for _ in range(3)]
+    words = words[0] & words[1] & words[2]
+    b = torch.from_numpy(buckets).to(device).long()
     for r in range(refs // 2):
-        ind[r, buckets[rng.random(n) < rng.uniform(0.6, 1.0)]] = True
-    words = np.packbits(ind, axis=1, bitorder="little").view(np.int32)
-    rows = rng.permutation(refs + 5)[:refs]
-    pool = np.zeros((refs + 5, bits // 32), np.int32)
+        keep = torch.from_numpy(rng.random(n) < rng.uniform(0.6, 1.0))
+        held = torch.unique(b[keep.to(device)])
+        words[r] |= torch.zeros(bits // 32, dtype=torch.int64,
+                                device=device).index_add_(
+            0, held >> 5, torch.ones_like(held) << (held & 31)).to(
+                torch.int32)
+    rows = torch.from_numpy(rng.permutation(refs + 5)[:refs]).to(device)
+    pool = torch.zeros((refs + 5, bits // 32), dtype=torch.int32,
+                       device=device)
     pool[rows] = words
-    t = [torch.from_numpy(a).to(device) for a in (
-        pool, rows.astype(np.int64), ind.sum(axis=1).astype(np.float32),
-        buckets, offsets)]
-    return t
+    return [pool, rows, _popcounts(words), b.to(torch.int32),
+            torch.from_numpy(offsets).to(device)]
 
 
-@pytest.mark.parametrize("refs,n,frags,bits", [
-    (8, 1_250_000, 3_333, 1 << 22),
-    (128, 200_000, 600, 1 << 22),
-    (3, 5_000, 40, 1 << 16),
-    (1, 300, 1, 1 << 16),
+@pytest.mark.parametrize("refs,n,frags,bits,edges", [
+    (8, 1_250_000, 3_333, 1 << 22, False),
+    (128, 200_000, 600, 1 << 22, False),
+    (3, 5_000, 40, 1 << 16, False),
+    (1, 300, 1, 1 << 16, False),
+    (1, 1_250_000, 3_333, 1 << 22, False),
+    (128, 1_250_000, 3_333, 1 << 22, False),
+    (1024, 200_000, 600, 1 << 22, False),
+    (8, 50_000, 150, 1 << 17, False),
+    (8, 100_000, 300, 1 << 20, False),
+    (8, 200_000, 600, 1 << 21, False),
+    (4, 20_000, 60, 1 << 20, True),
+    (4, 20_000, 60, 1 << 21, True),
+    (4, 20_000, 60, 1 << 22, True),
 ])
-def test_k8_matches_plain_version(cuda_device, refs, n, frags, bits):
+def test_k8_matches_plain_version(cuda_device, refs, n, frags, bits, edges):
     """K8 against _forward_plain on the card: AF equal, ANI within 1e-4
     percentage points (its identity sum runs in another order than
-    torch.sum), and K8 equal to itself over two calls."""
+    torch.sum), and K8 equal to itself over two calls; at every row
+    width the widen rule picks, R = 1 to 1,024 at 2^22 bits, and
+    fragments on both sides of every slice boundary and wholly in one
+    slice."""
     from galah_tpu_torch.ops import fragment_ani as fa
 
-    args = _grouped_inputs(refs + n, refs, n, frags, bits, cuda_device)
+    args = _grouped_inputs(refs + n, refs, n, frags, bits, cuda_device,
+                           edges)
     before = fa._forward_kernel.launches
     got = fa._forward_kernel(*args, bits=bits, **_VERIFY_KW)
     again = fa._forward_kernel(*args, bits=bits, **_VERIFY_KW)
@@ -1317,20 +1418,35 @@ def test_k7_and_k8_count_on_themselves_under_a_wrapped_name(cuda_device,
         assert real.launches == before + 1
 
 
+@pytest.mark.parametrize("failure", [
+    "error code", "plan", "shared memory", "cluster size"])
 @pytest.mark.parametrize("entry", ["galah_pair_table_verify",
                                    "galah_grouped_verify"])
-def test_k7_and_k8_raise_on_a_failed_launch(cuda_device, monkeypatch, entry):
+def test_k7_and_k8_raise_on_a_failed_launch(cuda_device, monkeypatch, entry,
+                                            failure):
     """A CUDA error from either entry raises with its code and counts no
-    launch: there is no fallback to the plain version."""
+    launch: there is no fallback to the plain version. "error code" is
+    any code the entry returns; the others are the real entries given a
+    launch plan that they refuse (a row that is not cluster x slice
+    bits), or that the card refuses: a cluster of blocks with 300,000
+    bytes of shared memory each, a cluster of 16 blocks."""
     from types import SimpleNamespace
 
     from galah_tpu_torch.ops import _build
     from galah_tpu_torch.ops import fragment_ani as fa
     from galah_tpu_torch.ops import pair_table as pt
 
-    monkeypatch.setattr(_build, "load_library", lambda: SimpleNamespace(
-        **{entry: lambda *args: 98,
-           "galah_grouped_verify_scratch_words": lambda f, r: 3 * f * r}))
+    plans = {"plan": pt.VerifyPlan(2, 1 << 16, 1 << 13),
+             "shared memory": pt.VerifyPlan(4, 1 << 14, 300_000),
+             "cluster size": pt.VerifyPlan(16, 1 << 12, 1 << 9)}
+    if failure == "error code":
+        monkeypatch.setattr(_build, "load_library", lambda: SimpleNamespace(
+            **{entry: lambda *args: 98,
+               "galah_grouped_verify_scratch_words": lambda f, r: 3 * f * r}))
+    else:
+        for mod in (pt, fa):
+            monkeypatch.setattr(mod, "verify_launch_plan",
+                                lambda bits: plans[failure])
     if entry == "galah_pair_table_verify":
         fn = pt._pair_table_kernel
         args = _one_pair(cuda_device)
@@ -1338,9 +1454,16 @@ def test_k7_and_k8_raise_on_a_failed_launch(cuda_device, monkeypatch, entry):
         fn = fa._forward_kernel
         args = _grouped_inputs(2, 3, 500, 4, 1 << 16, cuda_device)
     before = fn.launches
-    with pytest.raises(RuntimeError, match="CUDA error 98"):
+    with pytest.raises(RuntimeError, match="CUDA error 98" if failure ==
+                       "error code" else "CUDA error [1-9]"):
         fn(*args, bits=1 << 16, **_VERIFY_KW)
+    torch.cuda.synchronize()
     assert fn.launches == before
+    # the card took nothing from the refused launch: the next one runs
+    monkeypatch.undo()
+    fn(*args, bits=1 << 16, **_VERIFY_KW)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
 
 
 def test_verify_issue_steps_never_sync(cuda_device, tmp_path, monkeypatch):

@@ -15,7 +15,9 @@ run them. Pair table: AF and ANI exact (every sum is an integer in
 percentage points, as tests/test_torch_verify.py holds the float32
 identity sums of the two frameworks. The pair-table batches come from
 galah_tpu_torch/utils/synth.py::pair_table_batch, as the card's checks
-of K7 do."""
+of K7 do. The file also holds the kernels' launch plan
+(verify_launch_plan, check_rows) to its table, and every producer of
+the verify's streams to the order the kernels' row slices need."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -209,3 +211,116 @@ def test_forward_wrapper_rejects_a_width_not_a_power_of_two():
             torch.from_numpy(g["rows"]), torch.from_numpy(g["popc"]),
             torch.from_numpy(g["buckets"]), torch.from_numpy(g["offsets"]),
             bits=3 << 12, k=K, min_hashes=MIN_HASHES, min_ident=MIN_IDENT)
+
+
+# ----------------------------------------------- the kernels' launch plan
+
+# bits -> (cluster, slice_bits, smem_bytes): one block holds a row of up
+# to 2^20 bits (128 KiB), a cluster of 2 or 4 blocks the rows of 2^21 and
+# 2^22 bits, the widest the sketch parameters give.
+PLAN_TABLE = {**{1 << e: (1, 1 << e, 1 << (e - 3)) for e in range(7, 21)},
+              1 << 21: (2, 1 << 20, 1 << 17),
+              1 << 22: (4, 1 << 20, 1 << 17)}
+
+
+@pytest.mark.parametrize("bits", sorted(PLAN_TABLE))
+def test_verify_launch_plan(bits):
+    plan = pt.verify_launch_plan(bits)
+    assert tuple(plan) == PLAN_TABLE[bits]
+    assert plan.cluster * plan.slice_bits == bits
+    assert plan.smem_bytes == plan.slice_bits // 8 <= 1 << 17
+
+
+@pytest.mark.parametrize("bits", [0, 1 << 5, 1 << 6, 1 << 23, 1 << 24,
+                                  3 << 12])
+def test_verify_launch_plan_refuses_other_widths(bits):
+    with pytest.raises(ValueError):
+        pt.verify_launch_plan(bits)
+
+
+@pytest.mark.parametrize("lead,words,match", [
+    (0, 1 << 14, "words for"),
+    (1, 1 << 15, "16-byte aligned"),
+])
+def test_check_rows(lead, words, match):
+    """The rows the kernels' bulk copies take: exactly `bits` bits each,
+    from a 16-byte aligned start (not one word into an allocation)."""
+    pool = torch.zeros(lead + 2 * words, dtype=torch.int32)[lead:]
+    with pytest.raises(ValueError, match=match):
+        pt.check_rows(pool.view(2, words), 1 << 20)
+    pt.check_rows(torch.zeros((2, 1 << 15), dtype=torch.int32), 1 << 20)
+
+
+# ------------------------------------------- stream order, as K7/K8 need it
+
+def _jax_directory_sketches(paths, params, directory):
+    """The JAX package's sketches of `paths`, written to a sketch
+    directory by its PersistentSketchStore and read back by the port's."""
+    import dataclasses
+
+    from galah_tpu.sketch import fracminhash as jax_fmh
+    from galah_tpu.sketch import store as jax_store
+    from galah_tpu_torch.sketch import store
+
+    jparams = jax_fmh.NativeSketchParams(**dataclasses.asdict(params))
+    writer = jax_store.PersistentSketchStore(directory, jparams)
+    for p in paths:
+        writer.put(p, jax_fmh.sketch_file_native(p, jparams))
+    reader = store.PersistentSketchStore(directory, params)
+    return [reader.get(p) for p in paths]
+
+
+def _stream_sketches(producer, tmp_path):
+    """Sketches of a synthetic genome corpus and contig corpus from one
+    producer of the verify's streams, at the widths the CLI picks."""
+    from galah_tpu_torch.engines.native import _shrink_bits
+    from galah_tpu_torch.ops import device_sketch as ds
+    from galah_tpu_torch.sketch import store
+    from galah_tpu_torch.sketch.fracminhash import (
+        NativeSketchParams,
+        sketch_contigs_native,
+        sketch_file_native,
+        small_genome_params,
+    )
+    from galah_tpu_torch.utils.synth import make_contig_corpus, make_families
+
+    genomes, _ = make_families(str(tmp_path / "g"), 2, 2,
+                               genome_length=60_000, seed=4)
+    contigs = str(tmp_path / "c.fna")
+    make_contig_corpus(contigs, 6, 3, contig_length=5_000, seed=5)
+    gp = _shrink_bits(NativeSketchParams(), 60_000)
+    cp = small_genome_params()
+    cpu = torch.device("cpu")
+    if producer == "host sketcher":
+        return ([sketch_file_native(p, gp) for p in genomes]
+                + sketch_contigs_native(contigs, cp))
+    if producer == "K5 plain version":
+        return (ds.device_sketch_files(genomes, gp, cpu)
+                + ds.device_sketch_contig_files([contigs], cp, cpu)[0])
+    if producer == "contig bundle":
+        bundle = str(tmp_path / "bundle.npz")
+        store.save_contig_sketches(bundle,
+                                   sketch_contigs_native(contigs, cp))
+        return store.load_contig_sketches(bundle)
+    return _jax_directory_sketches(genomes, gp, str(tmp_path / "sk"))
+
+
+@pytest.mark.parametrize("producer", [
+    "host sketcher", "K5 plain version", "contig bundle",
+    "JAX-written sketch directory"])
+def test_streams_ascend_within_each_fragment(producer, tmp_path):
+    """K7 and K8 find each block's slice of a fragment by a search, so
+    every producer of the verify's streams must give buckets strictly
+    ascending within each fragment, below the member bits."""
+    sketches = _stream_sketches(producer, tmp_path)
+    assert len(sketches) >= 4
+    for sk in sketches:
+        b = np.asarray(sk.frag_buckets, np.int64)
+        off = np.asarray(sk.frag_offsets, np.int64)
+        assert sk.n_fragments > 0 and off[-1] == len(b)
+        rising = np.diff(b) > 0
+        starts = off[1:-1]
+        rising[starts[(starts > 0) & (starts < len(b))] - 1] = True
+        assert rising.all(), sk.name
+        assert b.size == 0 or (b.min() >= 0
+                               and b.max() < sk.params.member_bits)
