@@ -241,9 +241,17 @@ K2_SHAPES = ((1024, 1024, 4096), (2048, 2048, 4096), (2048, 2048, 8192),
 # gather kernels the unroll (the one both run).
 K12_SUMMARY_SHAPE = (1024, 1024, 4096)
 # K6 (the screen epilogue) on K1's counts at the contig path's tile and
-# edge tile and at the reference-mode tile; its times in the kernels'
-# JSON line are the contig tile's (4,851 launches on the contig path).
-K6_SHAPES = (*CONTIG_TILES, REFERENCE_TILE)
+# edge tile and at the reference-mode tile, then where its design could
+# break: n not a multiple of 4 (its scalar path) and m not a multiple of
+# its rows a block, on rows of 2^k bits as every screen's (the plain
+# version's division by the bits is exact only then, on the card where
+# torch multiplies by the reciprocal); its times in the kernels' JSON
+# line are the contig tile's (4,851 launches on the contig path).
+K6_SHAPES = (*CONTIG_TILES, REFERENCE_TILE, (1024, 1021, 1024),
+             (1000, 777, 1024), (1021, 1024, 1024))
+# Launches of K6 captured in one CUDA graph, for its time and for the
+# check that each launch leaves its scratch ready for the next.
+K6_GRAPH_CALLS = 50
 K6_SUMMARY_SHAPE = CONTIG_TILES[0]
 # float32 operations of K6's containment and cutoff an element (4
 # subtractions, 2 products, 3 divisions, 5 min/max, 1 compare) and the
@@ -253,9 +261,11 @@ F32_OPS_PER_S = 67e12
 # ms of the previous design of each kernel, NVIDIA H100 80GB HBM3 at
 # 700 W, printed beside the new times: the count kernels' integer-ALU
 # __popc design, from this script's kernel phase before the tensor-core
-# redesign; the gather kernels' two-waves grid with __ldg rows and an
-# index load a lane, from tools/gather_probe.py before their redesign, by
-# (kernel, shape name, unroll).
+# redesign; K6's two launches (a block a row, then a compaction grid),
+# from this script's epilogue phase before its one-launch redesign, in a
+# CUDA graph and called one by one; the gather kernels' two-waves grid
+# with __ldg rows and an index load a lane, from tools/gather_probe.py
+# before their redesign, by (kernel, shape name, unroll).
 PREVIOUS_MS = {
     ("K1", (1024, 1024, 8192)): 2.4669,
     ("K1", (1024, 1024, 4096)): 1.2169,
@@ -264,6 +274,12 @@ PREVIOUS_MS = {
     ("K2", (1024, 1024, 4096)): 1.1995,
     ("K2", (2048, 2048, 4096)): 4.7731,
     ("K2", (2048, 2048, 8192)): 9.5979,
+    ("K6", "1024x1024"): 0.0142,
+    ("K6", "1024x672"): 0.0119,
+    ("K6", "896x128"): 0.0091,
+    ("K6 one by one", "1024x1024"): 0.0357,
+    ("K6 one by one", "1024x672"): 0.0522,
+    ("K6 one by one", "896x128"): 0.0553,
     ("gather_xor", "reference", 1): 0.0039,
     ("gather_xor", "reference", 4): 0.0036,
     ("gather_xor", "reference", 8): 0.0044,
@@ -556,6 +572,7 @@ def _epilogue_cases(m: int, n: int, w: int, gen, dev):
     from galah_tpu_torch.ops.screen_epilogue import (
         screen_epilogue_reference,
     )
+    from galah_tpu_torch.utils.synth import epilogue_block_edge_cases
 
     cap = _screen_cap_for(1024)
     cut = float(_screen_min_containment(95.0, 0.15, 15))
@@ -582,17 +599,42 @@ def _epilogue_cases(m: int, n: int, w: int, gen, dev):
         cap=cap, streaming=False)
     knife = float(cont.reshape(-1).sort().values[-cap // 2])
     cases.append(("knife", drawn, sx, sy, knife, cap, False))
-    return cases
+    return cases + epilogue_block_edge_cases(m, n, cap, dev)
+
+
+def _epilogue_graph_check(k6, k6_plain, counts, a, b, kw, what: str) -> None:
+    """K6_GRAPH_CALLS launches of K6 captured in one CUDA graph and
+    replayed twice: the last launch's containment and hit buffer equal
+    the plain version bit for bit, so every launch before it left the
+    scratch ready for the next."""
+    import torch
+
+    k6(counts, a, b, **kw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [k6(counts, a, b, **kw) for _ in range(K6_GRAPH_CALLS)]
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    want = k6_plain(counts, a, b, **kw)
+    check(torch.equal(outs[-1][0].view(torch.int32),
+                      want[0].view(torch.int32)),
+          f"{what}: containment of the last graph launch differs")
+    check(torch.equal(outs[-1][1], want[1]),
+          f"{what}: hit buffer of the last graph launch differs")
 
 
 def phase_epilogue() -> dict:
     """K6 against its plain version, on every bit of the containment and
     every word of the hit buffer, at K6_SHAPES with int32 and float32
-    counts (_epilogue_cases, streaming and not). K6's time is the card's:
-    CUDA events around a CUDA graph of 50 calls, since one call issues
-    ~0.01 ms of device work and takes longer than that to issue; its
-    time called one by one is logged beside it. The plain version is
-    timed called one by one, as the screen ran it before K6."""
+    counts (_epilogue_cases, streaming and not), and after replays of a
+    CUDA graph of K6_GRAPH_CALLS launches (_epilogue_graph_check). K6's
+    time is the card's: CUDA events around a CUDA graph of 50 calls,
+    since one call issues a few µs of device work and takes longer than
+    that to issue; its time called one by one is logged beside it, and
+    the previous two-launch design's times beside both. The plain
+    version is timed called one by one, as the screen ran it before K6."""
     import torch
 
     from galah_tpu_torch.ops.screen_epilogue import (
@@ -632,19 +674,30 @@ def phase_epilogue() -> dict:
                           f"counts, streaming and not); {hits} hits, cap "
                           f"{cap}, hit rows {int(want[1][1])}, cutoff {cut!r}"
                           f", diag {diag}")
+        counts, a, b, cut, cap, diag = cases[1 if m == n else 0][1:7]
+        _epilogue_graph_check(
+            k6, k6_plain, counts, a, b,
+            dict(bits_f=float(w * 32), min_cont_f=cut, diag=diag, cap=cap,
+                 streaming=True), f"K6 {name}")
+        checked += 1
         counts, a, b, cut, cap = cases[0][1:6]
         kw = dict(bits_f=float(w * 32), min_cont_f=cut, diag=False, cap=cap,
                   streaming=False)
-        times[name] = (time_ms(lambda: k6(counts, a, b, **kw), dev, 50),
+        times[name] = (time_ms(lambda: k6(counts, a, b, **kw), dev,
+                               K6_GRAPH_CALLS),
                        _time_ms(lambda: k6_plain(counts, a, b, **kw), 10),
                        *_epilogue_bound(m, n, cap),
                        _time_ms(lambda: k6(counts, a, b, **kw), 50))
         ms, plain_ms, bound_ms, bound_by, eager_ms = times[name]
         log("kernel", f"K6 {name}: kernel {ms:.4f} ms/tile on the card (a "
-                      f"CUDA graph of 50 calls), {eager_ms:.4f} ms/tile "
-                      f"called one by one, plain {plain_ms:.4f} ms/tile, "
-                      f"bound {bound_ms:.5f} ms ({bound_by}); "
-                      f"{nvidia_smi_line()}")
+                      f"CUDA graph of {K6_GRAPH_CALLS} calls; two-launch "
+                      f"design "
+                      f"{_fmt_ms(PREVIOUS_MS.get(('K6', name)))}), "
+                      f"{eager_ms:.4f} ms/tile called one by one (two-launch "
+                      f"{_fmt_ms(PREVIOUS_MS.get(('K6 one by one', name)))})"
+                      f", plain {plain_ms:.4f} ms/tile, bound "
+                      f"{bound_ms:.5f} ms ({bound_by}), "
+                      f"{bound_ms / ms:.0%} of it; {nvidia_smi_line()}")
     ms, plain_ms, bound_ms, bound_by, _ = times["{}x{}".format(
         *K6_SUMMARY_SHAPE[:2])]
     log("kernel", f"K6: {checked} calls bit-exact against the plain version")

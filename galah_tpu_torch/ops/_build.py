@@ -152,12 +152,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.galah_packed_popcount, lib.galah_popcount_screen):
         fn.argtypes = [*COUNT_ARGS, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    # K6 (counts, counts_float, a, b, cont, hits, row_hits, m, n, bits,
-    # cut, diag, cap, streaming, stream) returns a CUDA error code.
+    # K6 (counts, counts_float, a, b, cont, hits, scratch, m, n, bits,
+    # cut, diag, cap, streaming, rows, stream) returns a CUDA error code.
     lib.galah_screen_epilogue.argtypes = [
         ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 5,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     lib.galah_screen_epilogue.restype = ctypes.c_int
     # The gather probe's entries take (idx, table, out, ns, wt, unroll,

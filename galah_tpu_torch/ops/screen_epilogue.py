@@ -14,16 +14,30 @@ For one (m, n) tile of counts and the rows' float32 set sizes it gives
   containment >= the float32 cutoff, with j > i on a diagonal tile.
 
 On a CUDA tensor it runs in the hand-written kernel
-csrc/screen_epilogue.cu (K6, two launches); on a CPU tensor in the plain
-torch version below. Both give the same bits.
+csrc/screen_epilogue.cu (K6, one launch a tile, laid out by
+`epilogue_plan`); on a CPU tensor in the plain torch version below.
+Both give the same bits.
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+# K6's launch plan: rows a block so that a 1024-row tile takes about two
+# blocks on each of an H100's 132 SMs (measured against one and four:
+# tools/k6_profile.py --target-blocks), and a block at least 1,024
+# elements, a 16-byte unit for each of its 256 threads; at most 32 rows,
+# the kernel's one word of row flags.
+TARGET_BLOCKS = 264
+MIN_BLOCK_ELEMENTS = 1024
+MAX_ROWS = 32
+# int64 words of K6's scratch, allocated at least this large: a word of
+# two counters (ticket, done), a status word a block and a 32-bit zeroed
+# flag a block (scratch_words).
+MIN_SCRATCH_WORDS = 4096
 
 
 def _containment(
@@ -82,6 +96,39 @@ def screen_epilogue_reference(
     return cont, _extract_hits(mask, cont, cap, rows=streaming)
 
 
+def epilogue_plan(m: int, n: int) -> Tuple[int, int]:
+    """(rows a block, blocks) of K6 on an (m, n) tile: at least one
+    block, even when m is 0."""
+    rows = max(-(-m // TARGET_BLOCKS), -(-MIN_BLOCK_ELEMENTS // max(n, 1)))
+    rows = min(MAX_ROWS, max(1, rows))
+    return rows, max(1, -(-m // rows))
+
+
+# K6's scratch by (device index, stream): launches on one stream never
+# overlap, and each leaves the scratch zero for the next. A CUDA graph
+# keeps the scratch of the stream it was captured on, so every scratch
+# made stays alive (_RETIRED) when a larger one replaces it.
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+_RETIRED: List[torch.Tensor] = []
+
+
+def scratch_words(blocks: int) -> int:
+    """int64 words K6's scratch needs for a grid of `blocks`."""
+    return 1 + blocks + (blocks + 1) // 2
+
+
+def _scratch(device: torch.device, stream: int, blocks: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < scratch_words(blocks):
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(MIN_SCRATCH_WORDS, scratch_words(blocks)),
+                          dtype=torch.int64, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
 def screen_epilogue(
     counts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
     bits_f: float, min_cont_f: float, diag: bool, cap: int, streaming: bool,
@@ -102,18 +149,17 @@ def screen_epilogue(
     from galah_tpu_torch.ops._build import load_library
 
     m, n = counts.shape
+    rows, blocks = epilogue_plan(m, n)
     cont = torch.empty((m, n), dtype=torch.float32, device=counts.device)
-    # The hit buffer, then K6's (m,) row counts.
-    work = torch.empty(2 + 2 * cap + m, dtype=torch.int32,
-                       device=counts.device)
+    hits = torch.empty(2 + 2 * cap, dtype=torch.int32, device=counts.device)
     entry = load_library().galah_screen_epilogue
     with torch.cuda.device(counts.device):
         stream = torch.cuda.current_stream(counts.device).cuda_stream
+        scratch = _scratch(counts.device, stream, blocks)
         err = entry(counts.data_ptr(), int(counts.dtype == torch.float32),
                     a.data_ptr(), b.data_ptr(), cont.data_ptr(),
-                    work.data_ptr(), work.data_ptr() + 4 * (2 + 2 * cap),
-                    m, n, bits_f, min_cont_f, int(diag), cap,
-                    int(streaming), stream)
+                    hits.data_ptr(), scratch.data_ptr(), m, n, bits_f,
+                    min_cont_f, int(diag), cap, int(streaming), rows, stream)
     if err != 0:
         raise RuntimeError(
             f"galah_screen_epilogue launch failed: CUDA error {err} "
@@ -121,7 +167,7 @@ def screen_epilogue(
     screen_epilogue.launches += 1
     if shard is not None:
         screen_epilogue.per_shard[shard] += 1
-    return cont, work[:2 + 2 * cap]
+    return cont, hits
 
 
 screen_epilogue.launches = 0

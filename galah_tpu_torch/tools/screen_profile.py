@@ -21,8 +21,9 @@ tile. On the card:
   that window's wall (the union of its kernels' and copies' intervals
   over the wall), as a JSON line and key_averages tables under --out.
   Each tile runs K1 and the epilogue K6 (ops/screen_epilogue.py, its
-  kernels containment_rows and compact_hits in the device table); the
-  sweep counts both kernels' launches.
+  one kernel screen_epilogue_tile in the device table; the earlier
+  two-launch design's containment_rows and compact_hits where this file
+  runs in an older tree); the sweep counts both kernels' launches.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them and one JSON object. Needs a CUDA device: there is nothing to time

@@ -6,9 +6,11 @@ expected clustering is known exactly.
 
 The port's own copy of galah_tpu/utils/synth.py, so that the port
 imports nothing of galah_tpu: same behaviour, file formats and numerics.
-It adds one thing of its own, pair_table_batch: the verify's pair-table
-batches, laid out as the stream arena and the bitmap pool hold them, on
-which the tests and chip_smoke.py hold K7 against its plain version.
+It adds two things of its own: pair_table_batch, the verify's
+pair-table batches, laid out as the stream arena and the bitmap pool
+hold them, on which the tests and chip_smoke.py hold K7 against its
+plain version; and epilogue_block_edge_cases, the screen tiles on which
+they hold K6 at its block edges.
 """
 
 from __future__ import annotations
@@ -378,3 +380,37 @@ def pair_table_args(batch: dict, device) -> list:
     return [torch.from_numpy(np.ascontiguousarray(
         batch[n].view(np.int32) if n == "pool" else batch[n])).to(device)
         for n in _PAIR_TABLE_ARGS] + [batch["n_flat"], batch["n_flat_frags"]]
+
+
+def epilogue_block_edge_cases(m: int, n: int, cap: int, device) -> list:
+    """K6's cases at its block edges (ops/screen_epilogue.py
+    epilogue_plan) on an (m, n) tile, as (name, counts, a, b, cutoff,
+    cap, diag): every pair of the first block's rows a hit and nothing
+    else, more than the 1,024 hits a block stages and fewer than `cap`
+    (when a block holds that many); and hits on a sparse diagonal pattern
+    over the whole tile, with the cap set halfway through the hits of the
+    middle block of the grid (when that block holds two or more). Every
+    row and column has 16 set bits; a hit's count is 16 (containment
+    ~1 for rows of 256 bits or more), any other 0; the cutoff is 0.5."""
+    import torch
+
+    from galah_tpu_torch.ops.screen_epilogue import epilogue_plan
+
+    rows, blocks = epilogue_plan(m, n)
+    a = torch.full((m,), 16.0, device=device)
+    b = torch.full((n,), 16.0, device=device)
+    cases = []
+    if 1024 < rows * n < cap:
+        dense = torch.zeros((m, n), dtype=torch.int32, device=device)
+        dense[:rows] = 16
+        cases.append(("stage-overflow", dense, a, b, 0.5, cap, False))
+    i = torch.arange(m, device=device)
+    pattern = (i[:, None] * 7 + torch.arange(n, device=device)) % 61 == 0
+    per_block = torch.zeros(blocks, dtype=torch.int64, device=device)
+    per_block.index_add_(0, i // rows, pattern.sum(dim=1))
+    k = blocks // 2
+    if int(per_block[k]) >= 2:
+        mid = int(per_block[:k].sum()) + int(per_block[k]) // 2
+        cases.append(("cap-mid-block", pattern.to(torch.int32) * 16, a, b,
+                      0.5, mid, False))
+    return cases

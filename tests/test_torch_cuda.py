@@ -23,6 +23,7 @@ from galah_tpu_torch.ops.popcount_screen import (
     popcount_tile_counts,
     popcount_tile_counts_reference,
 )
+from galah_tpu_torch.utils.synth import epilogue_block_edge_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -964,7 +965,7 @@ def _epilogue_cases(m, n, w, device):
     y = (torch.rand((n, w * 32), generator=gen, device=device) < 0.06)
     k = min(m, n) // 4
     y[:k] = x[m - k:]                   # copies across the tile
-    x[:k // 2] = x[k // 2:k]            # and inside x
+    x[:k // 2] = x[k // 2:k // 2 * 2]   # and inside x
     weights = (1 << torch.arange(32, device=device, dtype=torch.int64))
 
     def pack(ind):
@@ -994,7 +995,7 @@ def _epilogue_cases(m, n, w, device):
         cap=cap, streaming=False)
     knife = float(cont.reshape(-1).sort().values[-(m * n + 3) // 4])
     cases.append(("knife", drawn, sx, sy, knife, cap, False))
-    return cases
+    return cases + epilogue_block_edge_cases(m, n, cap, device)
 
 
 @pytest.mark.parametrize("m,n,w", [
@@ -1003,11 +1004,14 @@ def _epilogue_cases(m, n, w, device):
     (896, 128, 4096),     # the reference-mode tile
     (300, 257, 16),       # nothing a multiple of a block edge
     (1, 1, 8),
+    (1024, 1021, 1024),   # n not a multiple of 4: K6's scalar path
+    (1000, 777, 1024),    # K1's ragged shape, a screen's 2^k-bit rows
+    (1021, 1024, 64),     # m not a multiple of K6's rows a block
 ])
 def test_screen_epilogue_matches_plain_version(cuda_device, m, n, w):
     """K6 against its plain version on every bit of the containment and
     every word of the hit buffer, int32 and float32 counts, streaming
-    and not."""
+    and not, at K6's block edges too (epilogue_block_edge_cases)."""
     from galah_tpu_torch.ops.screen_epilogue import (
         screen_epilogue,
         screen_epilogue_reference,
@@ -1033,6 +1037,76 @@ def test_screen_epilogue_matches_plain_version(cuda_device, m, n, w):
     if m * n > 7:
         assert ("none", False, False) in seen
         assert ("over-small-cap", True, True) in seen
+    if m >= 1000:
+        assert ("stage-overflow", False, True) in seen
+        assert ("cap-mid-block", True, True) in seen
+
+
+def _hit_case(device, m=1024, n=1024, w=64):
+    """(counts, a, b, kw) of a diagonal tile with hits (the "k1-diagonal"
+    case of _epilogue_cases), streaming."""
+    name, counts, a, b, cut, cap, diag = next(
+        c for c in _epilogue_cases(m, n, w, device) if c[0] == "k1-diagonal")
+    return counts, a, b, dict(bits_f=float(w * 32), min_cont_f=cut,
+                              diag=diag, cap=cap, streaming=True)
+
+
+def test_screen_epilogue_back_to_back_on_two_streams(cuda_device):
+    """Launches issued in turns on two streams (each with its own
+    scratch), each output against the plain version."""
+    from galah_tpu_torch.ops.screen_epilogue import (
+        screen_epilogue,
+        screen_epilogue_reference,
+    )
+
+    counts, a, b, kw = _hit_case(cuda_device)
+    other = counts.clone()
+    other[::3] = 0
+    want = [screen_epilogue_reference(c, a, b, **kw) for c in (counts, other)]
+    streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
+    torch.cuda.synchronize()
+    got = []
+    for call in range(16):
+        with torch.cuda.stream(streams[call % 2]):
+            got.append(screen_epilogue((counts, other)[call // 2 % 2], a, b,
+                                       **kw))
+    torch.cuda.synchronize()
+    for call, (cont, hits) in enumerate(got):
+        w_cont, w_hits = want[call // 2 % 2]
+        assert torch.equal(cont.view(torch.int32), w_cont.view(torch.int32))
+        assert torch.equal(hits, w_hits), call
+    assert int(want[0][1][0]) > 0 and not torch.equal(want[0][1], want[1][1])
+
+
+def test_screen_epilogue_in_a_cuda_graph(cuda_device):
+    """50 launches captured in a CUDA graph and replayed, the input
+    changed in place between replays: the first and the last launch of
+    each replay equal the plain version, so each launch left its scratch
+    ready for the next."""
+    from galah_tpu_torch.ops.screen_epilogue import (
+        screen_epilogue,
+        screen_epilogue_reference,
+    )
+
+    counts, a, b, kw = _hit_case(cuda_device)
+    inputs = (counts.clone(), counts.clone())
+    inputs[1][1::2] = 0
+    static = inputs[0].clone()
+    screen_epilogue(static, a, b, **kw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [screen_epilogue(static, a, b, **kw) for _ in range(50)]
+    for replay in range(4):
+        static.copy_(inputs[replay % 2])
+        g.replay()
+        torch.cuda.synchronize()
+        want = screen_epilogue_reference(static, a, b, **kw)
+        for cont, hits in (outs[0], outs[-1]):
+            assert torch.equal(cont.view(torch.int32),
+                               want[0].view(torch.int32)), replay
+            assert torch.equal(hits, want[1]), replay
+        assert int(want[1][0]) > 0
 
 
 @pytest.mark.parametrize("m,n", [(0, 5), (5, 0)])
@@ -1084,8 +1158,8 @@ def test_screen_epilogue_raises_on_a_failed_launch(cuda_device, monkeypatch):
 
 def test_screen_issue_runs_k1_k6_and_the_copy_only(cuda_device):
     """Under torch.profiler one packed tile's issue step runs K1 (and
-    the zeroing of its output when W is split), K6's two kernels and
-    the copy home, nothing else on the card."""
+    the zeroing of its output when W is split), K6's one kernel and the
+    copy home, nothing else on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     from galah_tpu_torch.ops import prefilter as pf
@@ -1104,13 +1178,12 @@ def test_screen_issue_runs_k1_k6_and_the_copy_only(cuda_device):
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = [n for n in names if "emcpy" not in n]
-    assert any("containment_rows" in n for n in kernels), names
-    assert any("compact_hits" in n for n in kernels), names
+    assert sum("screen_epilogue_tile" in n for n in kernels) == 1, names
     assert any("packed_popcount" in n for n in kernels), names
-    assert all(any(k in n for k in ("containment_rows", "compact_hits",
+    assert all(any(k in n for k in ("screen_epilogue_tile",
                                     "packed_popcount", "fill", "Fill"))
                for n in kernels), names
-    assert len(kernels) <= 4 and len(names) - len(kernels) == 1, names
+    assert len(kernels) <= 3 and len(names) - len(kernels) == 1, names
     queue.result()
 
 

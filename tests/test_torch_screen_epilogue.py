@@ -282,3 +282,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, error):
         se.screen_epilogue(args["counts"], args["a"], args["b"],
                            bits_f=64.0, min_cont_f=0.5, diag=False,
                            cap=args["cap"], streaming=False)
+
+
+@pytest.mark.parametrize("m,n,rows,blocks", [
+    (1024, 1024, 4, 256),   # the contig tile: about two blocks an SM
+    (1024, 672, 4, 256),    # its edge tile
+    (896, 128, 8, 112),     # the reference tile: 1,024 elements a block
+    (2048, 2048, 8, 256),
+    (1021, 1024, 4, 256),   # the last block holds one row
+    (300, 257, 4, 75),
+    (16384, 64, 32, 512),   # at most 32 rows a block
+    (1, 1, 32, 1),
+    (0, 5, 32, 1),          # an empty tile still takes one block
+    (5, 0, 32, 1),
+])
+def test_epilogue_plan(m, n, rows, blocks):
+    """K6's launch plan: each row in one block, the last block not
+    empty, at most MAX_ROWS rows a block; its scratch holds the two
+    counters, a status word and a zeroed flag a block."""
+    assert se.epilogue_plan(m, n) == (rows, blocks)
+    assert 1 <= rows <= se.MAX_ROWS
+    assert (blocks - 1) * rows < max(m, 1) <= blocks * rows
+    assert 8 * se.scratch_words(blocks) >= 8 + 8 * blocks + 4 * blocks
